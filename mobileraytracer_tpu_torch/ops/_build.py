@@ -1,0 +1,106 @@
+"""Builds and loads the CUDA traversal kernels (csrc/*.cu).
+
+`nvcc` compiles the sources into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds).  The library goes to build/mrt_torch_kernels/<hash>/ at the
+repository root, keyed by a hash of the sources and flags, and is built
+at the first kernel launch of a process when that key has no library
+yet.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
+    "mrt_torch_kernels"
+LIB_NAME = "libmrt_traverse.so"
+
+# --fmad=false keeps every product and sum separately rounded, as in the
+# plain versions (see csrc/mt.cuh); -prec-div stays at its IEEE default
+# and --use_fast_math is never passed.
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_FUNCS = ("mrt_traverse_banded", "mrt_traverse_tilemt")
+_lib = None
+BUILD_INFO = {"seconds": None, "built": False, "path": None, "log": ""}
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def lib_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compiles the library if it is missing; returns its path."""
+    path = lib_path()
+    if path.exists():
+        BUILD_INFO.update(seconds=0.0, built=False, path=str(path))
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    t0 = time.perf_counter()
+    with tempfile.NamedTemporaryFile(dir=path.parent, suffix=".so",
+                                     delete=False) as tmp:
+        tmp_path = tmp.name
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *FLAGS, "-I", str(_CSRC), "-o", tmp_path,
+             *map(str, cu)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp_path, path)   # atomic: concurrent builders agree
+    finally:
+        if os.path.exists(tmp_path):
+            os.unlink(tmp_path)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, built=True,
+                      path=str(path), log=proc.stdout + proc.stderr)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The loaded library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name in _FUNCS:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
+                [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def error_string(err: int) -> str:
+    """cudaGetErrorString for a code returned by a launcher."""
+    fn = load().mrt_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return f"CUDA error {err}: {fn(err).decode()}"

@@ -27,3 +27,9 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the CUDA kernels of "
+        "mobileraytracer_tpu_torch); skipped where torch.cuda is unavailable")

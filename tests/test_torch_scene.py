@@ -1,0 +1,124 @@
+"""Scene data, cameras, lane order and film of the PyTorch port, held
+against the JAX package on the same inputs."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobileraytracer_tpu import bench_scenes as jbs
+from mobileraytracer_tpu import cameras as jcam
+from mobileraytracer_tpu import film as jfilm
+from mobileraytracer_tpu import renderer as jrend
+from mobileraytracer_tpu import scenes as jscenes
+from mobileraytracer_tpu.types import RenderConfig as JConfig
+from mobileraytracer_tpu_torch import bench_scenes as tbs
+from mobileraytracer_tpu_torch import cameras as tcam
+from mobileraytracer_tpu_torch import convert
+from mobileraytracer_tpu_torch import film as tfilm
+from mobileraytracer_tpu_torch import renderer as trend
+from mobileraytracer_tpu_torch import scenes as tscenes
+from mobileraytracer_tpu_torch.types import RenderConfig as TConfig
+
+torch.set_num_threads(2)
+
+
+def arrays(obj):
+    """Nested {field: numpy array} of a JAX-package dataclass."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None:
+            continue
+        out[f.name] = (arrays(v) if dataclasses.is_dataclass(v)
+                       else np.asarray(v))
+    return out
+
+
+def assert_same(jax_obj, port_obj, path="scene"):
+    """Every array of the port's dataclass equals the JAX one, with the
+    same dtype and shape (bool stays bool, ids stay int32)."""
+    for f in dataclasses.fields(port_obj):
+        p = getattr(port_obj, f.name)
+        j = getattr(jax_obj, f.name)
+        if p is None:
+            assert j is None, f"{path}.{f.name}"
+        elif dataclasses.is_dataclass(p):
+            assert_same(j, p, f"{path}.{f.name}")
+        else:
+            ja = np.asarray(j)
+            pa = p.cpu().numpy()
+            assert ja.dtype == pa.dtype, f"{path}.{f.name}"
+            np.testing.assert_array_equal(pa, ja, err_msg=f"{path}.{f.name}")
+
+
+@pytest.mark.parametrize("scene_id", [0, 1, 2, 3])
+def test_builtin_scenes_equal(scene_id):
+    js, jc = jscenes.load_builtin(scene_id, 1.0)
+    ts, tc = tscenes.load_builtin(scene_id, 1.0)
+    assert_same(js, ts)
+    assert_same(jc, tc, "camera")
+
+
+def test_conference_proxy_equal(monkeypatch):
+    # Both packages must take the same branch for the optional reference
+    # .mtl/.cam files.
+    monkeypatch.setattr(tbs, "CONFERENCE_DIR", jbs.CONFERENCE_DIR)
+    js, jc, jinfo = jbs.conference_proxy()
+    ts, tc, tinfo = tbs.conference_proxy()
+    assert tinfo == jinfo
+    assert int(ts.triangles.valid.sum()) == tbs.CONFERENCE_PRIMS
+    assert_same(js, ts)
+    assert_same(jc, tc, "camera")
+
+
+def test_convert_roundtrip():
+    js, jc = jscenes.load_builtin(2, 1.0)
+    assert_same(js, convert.scene_from_arrays(arrays(js)))
+    assert_same(jc, convert.camera_from_arrays(arrays(jc)), "camera")
+
+
+@pytest.mark.parametrize("scene_id", [0, 1])   # perspective, orthographic
+def test_generate_rays_match(scene_id):
+    _, jc = jscenes.load_builtin(scene_id, 1.0)
+    _, tc = tscenes.load_builtin(scene_id, 1.0)
+    rng = np.random.default_rng(scene_id)
+    u, v = (rng.uniform(0, 1, 777).astype(np.float32) for _ in range(2))
+    du, dv = (rng.uniform(-1e-3, 1e-3, 777).astype(np.float32)
+              for _ in range(2))
+    jo, jd = jcam.generate_rays(jc, *map(jnp.asarray, (u, v, du, dv)))
+    to, td = tcam.generate_rays(tc, *map(torch.from_numpy, (u, v, du, dv)))
+    # rtol 1e-6: a few float32 ulps for XLA's fusion of the basis sums.
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("wh", [(64, 64), (48, 32)])
+def test_pixel_order_equal(wh):
+    w, h = wh
+    jout = jrend._pixel_order(JConfig(width=w, height=h))
+    tout = trend._pixel_order(TConfig(width=w, height=h))
+    for j, t in zip(jout, tout):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_film_equal():
+    rng = np.random.default_rng(0)
+    # Radiance is never negative (float -> uint32 of a negative value is
+    # implementation-defined), but may exceed 1 and then clamps.
+    rgb = rng.uniform(0.0, 1.3, (500, 3)).astype(np.float32)
+    acc = rng.uniform(0, 1, (500, 3)).astype(np.float32)
+    q = tfilm.quantize_abgr(torch.from_numpy(rgb))
+    np.testing.assert_array_equal(q.numpy(),
+                                  np.asarray(jfilm.quantize_abgr(rgb)))
+    np.testing.assert_array_equal(
+        tfilm.unpack_abgr(q).numpy(), np.asarray(jfilm.unpack_abgr(q.numpy())))
+    for k in (1, 3, 7):
+        np.testing.assert_array_equal(
+            tfilm.incremental_avg_float(torch.from_numpy(acc),
+                                        torch.from_numpy(rgb), k).numpy(),
+            np.asarray(jfilm.incremental_avg_float(acc, rgb, k)))

@@ -1,0 +1,178 @@
+"""Block tables, candidate windows and the two traversal kernels' plain
+versions of the PyTorch port, held against the JAX package (Pallas
+kernels in interpret mode).  The drivers around the kernels are held in
+test_torch_traversal_drivers.py."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobileraytracer_tpu import bench_scenes as jbs
+from mobileraytracer_tpu.ops import pallas_bvh as jpb
+from mobileraytracer_tpu_torch import bench_scenes as tbs
+from mobileraytracer_tpu_torch import cameras as tcam
+from mobileraytracer_tpu_torch import renderer as trend
+from mobileraytracer_tpu_torch import constants as C
+from mobileraytracer_tpu_torch.ops import block_traversal as tbt
+from mobileraytracer_tpu_torch.ops import kernels as K
+from mobileraytracer_tpu_torch.types import RenderConfig as TConfig
+
+torch.set_num_threads(2)
+
+BIG = C.RAY_LENGTH_MAX
+# t from the port's plain kernels vs the Pallas kernels in interpret mode:
+# XLA's CPU compiler contracts the Moller-Trumbore products and sums into
+# FMAs (a*b + c*d differs from separately rounded arithmetic in about a
+# quarter of random cases); the port keeps every operation separately
+# rounded, so its CUDA kernels (built with --fmad=false) equal the plain
+# versions bit for bit.  Measured differences are a few float32 ulps;
+# slots and round counts stay exact.
+T_RTOL = 1e-5
+
+_CACHE = {}
+
+
+def conference20k():
+    """(JAX tris, JAX grid, port tris, port grid, camera rays o, d): the
+    camera's primary rays of a 32x32 image in patch-major lane order."""
+    if "c" not in _CACHE:
+        js, jc, _ = jbs.conference_proxy(target_prims=20000)
+        ts, tc, _ = tbs.conference_proxy(target_prims=20000)
+        jt2, jg = jpb.build_blocks(js.triangles)
+        tt2, tg = tbt.build_blocks(ts.triangles)
+        u, v, _, _ = trend._pixel_order(TConfig(width=32, height=32))
+        zero = torch.zeros_like(u)
+        o, d = (a.numpy() for a in tcam.generate_rays(tc, u, v, zero, zero))
+        _CACHE["c"] = (jt2, jg, tt2, tg, o, d)
+    return _CACHE["c"]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _tri_fields(tris):
+    return {f.name: np.asarray(getattr(tris, f.name))
+            for f in dataclasses.fields(tris)}
+
+
+def _assert_grid_equal(jt2, jg, tt2, tg):
+    for f in ("super_lo", "super_hi", "blocks_packed", "tb", "tri_attr"):
+        np.testing.assert_array_equal(getattr(tg, f).numpy(),
+                                      np.asarray(getattr(jg, f)), err_msg=f)
+    assert (tg.top_s, tg.top_m) == (jg.top_s, jg.top_m)
+    # The triangle permutation: every reordered field equal.
+    for name, a in _tri_fields(jt2).items():
+        np.testing.assert_array_equal(getattr(tt2, name).numpy(), a,
+                                      err_msg=name)
+
+
+def test_build_blocks_equal_conference20k():
+    _assert_grid_equal(*conference20k()[:4])
+
+
+def test_build_blocks_equal_conference_full():
+    js, _, _ = jbs.conference_proxy()
+    ts, _, _ = tbs.conference_proxy()
+    jt2, jg = jpb.build_blocks(js.triangles)
+    tt2, tg = tbt.build_blocks(ts.triangles)
+    assert tg.tb.shape == (3856, 16, 128)
+    _assert_grid_equal(jt2, jg, tt2, tg)
+
+
+@pytest.mark.parametrize("st", [16, 128])
+@pytest.mark.parametrize("bounds", ["none", "cap", "floor", "cap+floor"])
+def test_candidates_equal(st, bounds):
+    _, jg, _, tg, o, d = conference20k()
+    nt = o.shape[0] // st
+    rng = np.random.default_rng(st)
+    kw = {}
+    if "cap" in bounds:
+        kw["cap"] = rng.uniform(300, 1500, nt).astype(np.float32)
+    if "floor" in bounds:
+        kw["floor"] = rng.uniform(0, 600, nt).astype(np.float32)
+    jout = jpb._candidates(jg, jnp.asarray(o), jnp.asarray(d), st=st,
+                           **{k: jnp.asarray(v) for k, v in kw.items()})
+    tout = tbt._candidates(tg, _t(o), _t(d), st=st,
+                           **{k: _t(v) for k, v in kw.items()})
+    for name, j, t in zip(("cand_gid", "cand_first", "cand_entry", "cut"),
+                          jout, tout):
+        assert t.dtype == torch.from_numpy(np.asarray(j)).dtype, name
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+
+
+def _kernel_inputs(st, any_hit):
+    _, jg, _, tg, o, d = conference20k()
+    top = dict(top_s=48, top_m=64) if st == 128 else {}
+    cg, _, ce, _ = (np.asarray(a) for a in jpb._candidates(
+        jg, jnp.asarray(o), jnp.asarray(d), st=st, **top))
+    b = o.shape[0]
+    t0 = np.full((b, 1), 900.0 if any_hit else BIG, np.float32)
+    prev = np.full((b, 1), -1.0, np.float32)
+    prev[::7] = 5.0                        # exercise the previous-slot guard
+    rays = np.concatenate([o, d, t0, prev], 1)
+    return jg, tg, cg, ce, rays
+
+
+def _assert_kernel_out(t_port, s_port, n_port, t_jax, s_jax, n_jax):
+    np.testing.assert_array_equal(s_port, s_jax)
+    np.testing.assert_array_equal(n_port, n_jax)
+    np.testing.assert_allclose(t_port, t_jax, rtol=T_RTOL)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_banded_plain_matches_pallas(any_hit):
+    jg, tg, cg, ce, rays = _kernel_inputs(16, any_hit)
+    m = cg.shape[1]
+    jt, js, jn = (np.asarray(a)[:, 0] for a in jpb._traverse_padded(
+        jnp.asarray(jg.tb), jnp.asarray(cg), jnp.asarray(ce),
+        jnp.asarray(rays), m, any_hit, True))
+    tt, ts, tn = K.banded_plain(tg.tb, _t(cg), _t(ce), _t(rays), m, any_hit)
+    _assert_kernel_out(tt.numpy(), ts.numpy(), tn.numpy(), jt, js, jn)
+    assert len(np.unique(jn)) > 1         # programs stop at different rounds
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tilemt_plain_matches_pallas(any_hit):
+    jg, tg, cg, ce, rays = _kernel_inputs(128, any_hit)
+    m = cg.shape[1]
+    jo = np.asarray(jpb._traverse_tilemt_padded(
+        jnp.asarray(jg.tb), jnp.asarray(cg), jnp.asarray(ce),
+        jnp.asarray(rays), m, any_hit, True))
+    to = K.tilemt_plain(tg.tb, _t(cg), _t(ce), _t(rays), m, any_hit).numpy()
+    _assert_kernel_out(to[:, 0], to[:, 1], to[:, 2], jo[:, 0], jo[:, 1],
+                       jo[:, 2])
+    np.testing.assert_array_equal(to[:, 3], 0.0)
+
+
+def test_cpu_wrappers_run_plain_versions_and_count_nothing():
+    _, _, _, tg, o, d = conference20k()
+    K.reset_launches()
+    _, tg_, cg, ce, rays = _kernel_inputs(16, False)
+    m = cg.shape[1]
+    out = K.traverse_banded(tg.tb, _t(cg), _t(ce), _t(rays), m, False)
+    ref = K.banded_plain(tg.tb, _t(cg), _t(ce), _t(rays), m, False)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    _, _, cg2, ce2, rays2 = _kernel_inputs(128, True)
+    out2 = K.traverse_tilemt(tg.tb, _t(cg2), _t(ce2), _t(rays2),
+                             cg2.shape[1], True)
+    np.testing.assert_array_equal(
+        out2.numpy(), K.tilemt_plain(tg.tb, _t(cg2), _t(ce2), _t(rays2),
+                                     cg2.shape[1], True).numpy())
+    assert K.LAUNCHES == {"banded": 0, "tilemt": 0}
+    with pytest.raises(ValueError):
+        K.traverse_banded(tg.tb, _t(cg), _t(ce), _t(rays[:100]), m, False)
+    with pytest.raises(TypeError):
+        K.traverse_banded(tg.tb, _t(cg).long(), _t(ce), _t(rays), m, False)
+
+
+@pytest.mark.parametrize("mode", ["tilebw", "resident"])
+def test_unported_modes_raise(mode):
+    _, _, tt2, tg, o, d = conference20k()
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tbt._TRAVERSALS[mode](tg, tt2, _t(o), _t(d), BIG,
+                              torch.zeros(len(o), dtype=torch.int32),
+                              torch.full((len(o),), -1, dtype=torch.int32))

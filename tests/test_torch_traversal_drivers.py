@@ -1,0 +1,175 @@
+"""The traversal drivers of the PyTorch port (candidate windows, kernel,
+exact refill, scene queries) and its naive oracle, held against the JAX
+package and against the port's own oracle."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mobileraytracer_tpu import constants as JC
+from mobileraytracer_tpu import scenes as jscenes
+from mobileraytracer_tpu.ops import intersect as jnv
+from mobileraytracer_tpu.ops import pallas_bvh as jpb
+from mobileraytracer_tpu_torch import constants as C
+from mobileraytracer_tpu_torch import scenes as tscenes
+from mobileraytracer_tpu_torch.ops import block_traversal as tbt
+from mobileraytracer_tpu_torch.ops import intersect as tnv
+from mobileraytracer_tpu_torch.types import Triangles
+from test_torch_traversal import BIG, T_RTOL, _t, conference20k
+
+torch.set_num_threads(2)
+
+_SOUP = {}
+
+
+def _assert_ids(ids, ref_ids, t, ref_t, tris, o, d):
+    """Hit ids equal, except on coincident triangles (PARITY.md section 7):
+    a differing id is accepted only where both triangles are hit at the
+    bit-identical t."""
+    ids, ref_ids = np.asarray(ids), np.asarray(ref_ids)
+    diff = np.nonzero(ids != ref_ids)[0]
+    for i in diff:
+        assert ids[i] >= 0 and ref_ids[i] >= 0, i
+        pair = torch.tensor([ids[i], ref_ids[i]], dtype=torch.int32)
+        tt = tnv.recompute_tri_t(tris, _t(o[[i, i]]), _t(d[[i, i]]), pair)
+        assert tt[0] == tt[1], f"ray {i}: not a coincident-triangle tie"
+    assert len(diff) <= 2
+    hit = ref_ids >= 0
+    np.testing.assert_allclose(np.asarray(t)[hit], np.asarray(ref_t)[hit],
+                               rtol=T_RTOL)
+
+
+@pytest.mark.parametrize("mode", ["banded", "tilemt"])
+def test_traversal_matches_jax_and_naive(mode):
+    jt2, jg, tt2, tg, o, d = conference20k()
+    b = 256
+    o, d = o[:b], d[:b]
+    pk = np.zeros(b, np.int32)
+    pi = np.full(b, -1, np.int32)
+    t_p, id_p = tbt._TRAVERSALS[mode](tg, tt2, _t(o), _t(d), BIG, _t(pk),
+                                      _t(pi))
+    t_n, id_n = tnv.closest_triangles(tt2, _t(o), _t(d),
+                                      torch.full((b,), BIG), _t(pk), _t(pi))
+    _assert_ids(id_p, id_n, t_p, t_n, tt2, o, d)
+    t_j, id_j = jpb._TRAVERSALS[mode](jg, jt2, jnp.asarray(o), jnp.asarray(d),
+                                      JC.RAY_LENGTH_MAX, jnp.asarray(pk),
+                                      jnp.asarray(pi))
+    _assert_ids(id_p, id_j, t_p, t_j, tt2, o, d)
+    assert (id_p.numpy() >= 0).sum() > b // 2
+
+    # Any-hit with a self-hit guard on each ray's closest triangle.
+    md = torch.full((b,), 600.0)
+    pk2 = torch.full((b,), C.PRIM_TRIANGLE, dtype=torch.int32)
+    _, id_a = tbt._TRAVERSALS[mode](tg, tt2, _t(o), _t(d), md, pk2, id_p,
+                                    any_hit=True)
+    _, id_an = tnv.closest_triangles(tt2, _t(o), _t(d), md, pk2, id_p)
+    np.testing.assert_array_equal(id_a.numpy() >= 0, id_an.numpy() >= 0)
+
+
+def test_scene_queries_match_jax_cornell2():
+    """Whole-scene closest hit and occlusion (planes, spheres, area lights,
+    triangles through the block traversal) on scene 2."""
+    js, _ = jscenes.load_builtin(C.SCENE_CORNELL2, 1.0)
+    ts, _ = tscenes.load_builtin(C.SCENE_CORNELL2, 1.0)
+    jsp = jpb.build(js)
+    tsp = tbt.build(ts)
+    rng = np.random.default_rng(5)
+    b = 256
+    o = rng.uniform(-0.3, 0.3, (b, 3)).astype(np.float32)
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pk = np.zeros(b, np.int32)
+    pi = np.full(b, -1, np.int32)
+    jh = jpb.intersect_scene_pallas(jsp, *map(jnp.asarray, (o, d, pk, pi)),
+                                    mode="banded")
+    th = tbt.intersect_scene_blocks(tsp, *map(_t, (o, d, pk, pi)),
+                                    mode="banded")
+    np.testing.assert_array_equal(th.prim_kind.numpy(),
+                                  np.asarray(jh.prim_kind))
+    np.testing.assert_array_equal(th.prim_id.numpy(), np.asarray(jh.prim_id))
+    np.testing.assert_array_equal(th.mat_id.numpy(), np.asarray(jh.mat_id))
+    for f in ("t", "point", "normal", "uv", "light_le"):
+        np.testing.assert_allclose(getattr(th, f).numpy(),
+                                   np.asarray(getattr(jh, f)), rtol=1e-5,
+                                   atol=1e-6, err_msg=f)
+    # The port's own naive oracle agrees with the traversal.
+    tn = tnv.intersect_scene_naive(tsp, *map(_t, (o, d, pk, pi)))
+    np.testing.assert_array_equal(th.prim_id.numpy(), tn.prim_id.numpy())
+    jo = jpb.occluded_pallas(jsp, *map(jnp.asarray, (o, d)), 1.5,
+                             jnp.asarray(pk), jnp.asarray(pi), mode="banded")
+    to = tbt.occluded_blocks(tsp, _t(o), _t(d), 1.5, _t(pk), _t(pi),
+                             mode="banded")
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+
+
+@pytest.mark.parametrize("scene_id", [0, 1, 2, 3])
+def test_naive_oracle_matches_jax(scene_id):
+    js, _ = jscenes.load_builtin(scene_id, 1.0)
+    ts, _ = tscenes.load_builtin(scene_id, 1.0)
+    rng = np.random.default_rng(scene_id)
+    b = 300
+    o = rng.uniform(-0.8, 0.8, (b, 3)).astype(np.float32)
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pk = np.where(np.arange(b) % 5 == 0, C.PRIM_SPHERE, 0).astype(np.int32)
+    pi = np.where(pk > 0, 0, -1).astype(np.int32)
+    jh = jnv.intersect_scene_naive(js, *map(jnp.asarray, (o, d, pk, pi)))
+    th = tnv.intersect_scene_naive(ts, *map(_t, (o, d, pk, pi)))
+    for f in ("prim_kind", "prim_id", "mat_id"):
+        np.testing.assert_array_equal(getattr(th, f).numpy(),
+                                      np.asarray(getattr(jh, f)), err_msg=f)
+    for f in ("t", "point", "normal", "uv", "light_le"):
+        np.testing.assert_allclose(getattr(th, f).numpy(),
+                                   np.asarray(getattr(jh, f)), rtol=1e-5,
+                                   atol=1e-6, err_msg=f)
+    jo = jnv.occluded_naive(js, *map(jnp.asarray, (o, d)), 2.0,
+                            jnp.asarray(pk), jnp.asarray(pi))
+    to = tnv.occluded_naive(ts, _t(o), _t(d), 2.0, _t(pk), _t(pi))
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+
+
+def _random_tris(n, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32))
+    return Triangles(
+        point_a=f(rng.uniform(-1, 1, (n, 3))),
+        ab=f(rng.uniform(-0.3, 0.3, (n, 3))),
+        ac=f(rng.uniform(-0.3, 0.3, (n, 3))),
+        normal_a=torch.zeros(n, 3), normal_b=torch.zeros(n, 3),
+        normal_c=torch.zeros(n, 3), uv_a=torch.full((n, 2), -1.0),
+        uv_b=torch.full((n, 2), -1.0), uv_c=torch.full((n, 2), -1.0),
+        mat_id=torch.zeros(n, dtype=torch.int32),
+        valid=torch.ones(n, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("mode", ["banded", "tilemt"])
+def test_soup_reaches_dense_backstop_and_stays_exact(mode):
+    """120k uniformly random overlapping triangles defeat the SAH windows:
+    the windowed refill stalls and the dense naive backstop
+    (pallas_bvh.py:703-727) must finish the walk exactly."""
+    b = 256
+    md = torch.full((b,), 1.0)
+    pk = torch.zeros(b, dtype=torch.int32)
+    pi = torch.full((b,), -1, dtype=torch.int32)
+    if "soup" not in _SOUP:
+        # 60k triangles still resolve in the windowed refill; 120k stall.
+        tris, grid = tbt.build_blocks(_random_tris(120000, seed=3))
+        rng = np.random.default_rng(5)
+        o = _t(rng.uniform(-2, 2, (b, 3)).astype(np.float32))
+        d = rng.normal(size=(b, 3)).astype(np.float32)
+        d = _t(d / np.linalg.norm(d, axis=1, keepdims=True))
+        # The naive oracle's answers, shared by both modes.
+        tn, idn = tnv.closest_triangles(tris, o, d, torch.full((b,), BIG),
+                                        pk, pi)
+        _, occ_n = tnv.closest_triangles(tris, o, d, md, pk, pi)
+        _SOUP["soup"] = (tris, grid, o, d, tn, idn, occ_n)
+    tris, grid, o, d, tn, idn, occ_n = _SOUP["soup"]
+    tbt.LOOPS.update(refill=0, dense=0)
+    t, ids = tbt._TRAVERSALS[mode](grid, tris, o, d, BIG, pk, pi)
+    assert tbt.LOOPS["dense"] > 0
+    np.testing.assert_array_equal(ids.numpy(), idn.numpy())
+    np.testing.assert_array_equal(t.numpy(), torch.where(idn >= 0, tn,
+                                                         BIG).numpy())
+    _, ids2 = tbt._TRAVERSALS[mode](grid, tris, o, d, md, pk, pi,
+                                    any_hit=True)
+    np.testing.assert_array_equal(ids2.numpy() >= 0, occ_n.numpy() >= 0)
