@@ -21,7 +21,18 @@ raises and the script exits nonzero):
      package's frame committed as tests/data/torch_port_golden_conference64.npy;
   6. timing with CUDA events: ms/frame and rays/s, each kernel against its
      plain version; then one frame under torch.profiler: device busy time,
-     idle share and the largest device ops.
+     idle share and the largest device ops;
+  7. the two other traversal modes at full width, with the launch counters
+     reset just before: the 262,144 patch-major primaries of phase 4
+     through intersect_scene_blocks(mode="tilebw") against mode="tilemt"
+     (and the naive oracle on 2,048 sampled rays), then reversed shared-
+     light NEE on those hits with the occlusion through the "banded",
+     "resident", "tilebw" and "tilemt" modes (scripts/shadow_ab4.py's
+     harness): banded and resident must agree, tilebw and tilemt must
+     agree, and the two pairs may differ only on blockers within one ulp
+     of the segment end, which the JAX package's tile windows miss too.  Each new kernel
+     against its plain version, bitwise, on the batches it was given, and
+     CUDA-event timings of the passes and kernels.
 The card's name and power limit and then the kernels' JSON record come
 just before the last line, {"ok": true, "device": {...}}.
 """
@@ -49,6 +60,13 @@ KERNELS = {
     "banded": dict(name="traverse_banded", route="cuda",
                    source="mobileraytracer_tpu_torch/csrc/traverse_banded.cu",
                    replaces="mobileraytracer_tpu/ops/pallas_bvh.py:441"),
+    "tilebw": dict(name="traverse_tilebw", route="cuda",
+                   source="mobileraytracer_tpu_torch/csrc/traverse_tilebw.cu",
+                   replaces="mobileraytracer_tpu/ops/pallas_bvh.py:1096"),
+    "resident": dict(name="traverse_resident", route="cuda",
+                     source="mobileraytracer_tpu_torch/csrc/"
+                            "traverse_resident.cu",
+                     replaces="mobileraytracer_tpu/ops/pallas_bvh.py:848"),
 }
 
 
@@ -209,7 +227,8 @@ def main():
            f" mean {img.mean():.6f}; rays {rays}; launches {launches}; "
            f"walk steps {engine.WALK['steps']}; refill loops {loops}")
     if not (np.isfinite(img).all() and img.shape == (512, 512, 3)
-            and rays > 0 and all(n > 0 for n in launches.values())):
+            and rays > 0
+            and all(launches[k] > 0 for k in ("tilemt", "banded"))):
         raise AssertionError("main path frame failed its checks")
     # Exactness of the main path's primary traversal: tile-MT plus refill
     # against the naive oracle on a sample of the frame's rays.
@@ -281,11 +300,183 @@ def main():
         records.append(dict(KERNELS[kind], launches=launches[kind],
                             max_abs_err=err[kind], ms=k_ms, plain_ms=p_ms))
 
+    # -- 7 ------------------------------------------------------------------
+    records += traversal_modes(scene, cfg, key, o, d, pk, pi, b, card)
+
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
+    """Phase 7: the "tilebw" and "resident" modes on the 512x512 primaries
+    and their NEE shadow batch.  Returns the two kernels' JSON records."""
+    from mobileraytracer_tpu_torch import renderer, sampling
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.ops import intersect as nv
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    from mobileraytracer_tpu_torch.shaders import common
+
+    dev = o.device
+    wrapped = {"tilebw": K.traverse_tile, "resident": K.traverse_resident}
+    plain = {"tilebw": K.tile_plain, "resident": K.resident_plain}
+    captured = {}
+    stage = {"what": None}
+
+    def recorder(kind):
+        fn = wrapped[kind]
+
+        def rec(*args):
+            tag = (kind, stage["what"])
+            if tag not in captured:
+                captured[tag] = tuple(a.clone() if torch.is_tensor(a) else a
+                                      for a in args)
+            return fn(*args)
+        return rec
+
+    pids = renderer._pixel_order(cfg, dev)[2]
+    keys = sampling.event_key(sampling.ray_key(key, pids, 0), 0, 1)
+
+    def closest(mode):
+        return bt.intersect_scene_blocks(scene, o, d, pk, pi, mode=mode)
+
+    masks = {}
+    shadow = {}
+
+    def nee(hit, mode):
+        def occ(scene_, o_, d_, md, pk_, pi_):
+            blocked = bt.occluded_blocks(scene_, o_, d_, md, pk_, pi_,
+                                         mode=mode)
+            masks[mode] = blocked
+            shadow["rays"] = (o_, d_, md, pk_, pi_)
+            return blocked
+        return common.direct_lighting(
+            scene, hit, keys, cfg.samples_light, shadows=True,
+            occluded_fn=occ, mask=~hit.missed, share_mask=None,
+            share_width=cfg.nee_share, reverse=True, share_all=True)
+
+    K.reset_launches()
+    K.traverse_tile = recorder("tilebw")
+    K.traverse_resident = recorder("resident")
+    try:
+        stage["what"] = "primary (closest)"
+        hit_bw = closest("tilebw")
+        hit_mt = closest("tilemt")
+        stage["what"] = "shadow (any-hit)"
+        light = {mode: nee(hit_bw, mode)
+                 for mode in ("banded", "tilebw", "resident", "tilemt")}
+    finally:
+        K.traverse_tile = wrapped["tilebw"]
+        K.traverse_resident = wrapped["resident"]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+
+    # Closest hits: tilebw against tilemt on every ray, and against the
+    # naive oracle on a sample, coincident-triangle ties aside.
+    def differ(h, ref, sel=slice(None)):
+        mism = torch.nonzero((h.prim_kind[sel] != ref.prim_kind)
+                             | (h.prim_id[sel] != ref.prim_id))[:, 0]
+        tri = C.PRIM_TRIANGLE
+        ties = int(((h.prim_kind[sel][mism] == tri)
+                    & (ref.prim_kind[mism] == tri)
+                    & (h.t[sel][mism] == ref.t[mism])).sum())
+        return len(mism), ties
+
+    n_mt, ties_mt = differ(hit_bw, hit_mt)
+    sample = torch.randperm(b, generator=torch.Generator().manual_seed(0))[
+        :2048].to(dev)
+    naive = nv.intersect_scene_naive(scene, o[sample], d[sample],
+                                     pk[sample], pi[sample])
+    n_nv, ties_nv = differ(hit_bw, naive, sample)
+    say(7, f"tilebw closest on {b} primaries: {n_mt} hits differ from "
+           f"tilemt ({ties_mt} coincident-triangle ties); {n_nv} of 2048 "
+           f"sampled differ from the naive oracle ({ties_nv} ties); "
+           f"launches {launches}")
+    if n_mt != ties_mt or n_nv != ties_nv:
+        raise AssertionError("tilebw primary hits disagree")
+    # Occlusion: the subtile modes (banded, resident) agree, and so do the
+    # tile modes (tilebw, tilemt: same windows and refill).  The two pairs
+    # may differ only where the naive oracle's blocker lies within one ulp
+    # of the segment's end: the tile windows' exact per-ray slab bound
+    # rounds onto the end and prunes it, in the JAX package too (ROADMAP.md
+    # Queue 3, tests/test_torch_traversal_edge.py).
+    def same(a, b):
+        return (torch.equal(masks[a], masks[b])
+                and torch.equal(light[a][0], light[b][0]))
+
+    base = masks["banded"]
+    lanes = torch.nonzero(masks["tilebw"] != base)[:, 0]
+    so, sd, md, spk, spi = shadow["rays"]
+    md = torch.as_tensor(md, device=dev).expand(b)
+    t_n, id_n = nv.closest_triangles(scene.triangles, so[lanes], sd[lanes],
+                                     md[lanes], spk[lanes], spi[lanes])
+    edge = bool(((id_n >= 0) & base[lanes]
+                 & (torch.nextafter(t_n, torch.full_like(t_n, torch.inf))
+                    >= md[lanes])).all())
+    keep = torch.ones(b, dtype=torch.bool, device=dev)
+    keep[lanes] = False
+    rad_eq = torch.equal(light["tilebw"][0][keep], light["banded"][0][keep])
+    sub_eq, tile_eq = same("resident", "banded"), same("tilebw", "tilemt")
+    say(7, f"reversed shared-light NEE: {b} shadow rays, {int(base.sum())} "
+           f"occluded; occlusion and radiance equal banded = resident: "
+           f"{sub_eq}, tilebw = tilemt: {tile_eq}; tilebw vs banded: "
+           f"{len(lanes)} lanes differ, each a blocker within one ulp of "
+           f"the segment end that the tile windows prune as the JAX "
+           f"package does: {edge}; radiance equal elsewhere: {rad_eq}")
+    if not (sub_eq and tile_eq and edge and rad_eq):
+        raise AssertionError("the occluders disagree")
+    if not (launches["tilebw"] > 0 and launches["resident"] > 0):
+        raise AssertionError(f"phase 7 missed a kernel: {launches}")
+
+    err = {"tilebw": 0.0, "resident": 0.0}
+    for (kind, what), args in sorted(captured.items()):
+        got = wrapped[kind](*args)
+        want = plain[kind](*args)
+        if kind == "resident":
+            got, want = torch.stack(got), torch.stack(want)
+            stats = (f"partitions {args[5]}, occluded in some partition "
+                     f"{int((got[0] < args[3][:, 6]).any(0).sum())}")
+        else:
+            stats = (f"rounds mean {float(got[:, 7].mean()):.2f} max "
+                     f"{int(got[:, 7].max())}, flagged amb "
+                     f"{int(got[:, 8].sum())}")
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err[kind] = max(err[kind], e)
+        say(7, f"{KERNELS[kind]['name']} {what}: rays {args[3].shape[0]} "
+               f"m {args[4]}, {stats}; bitwise equal to plain: "
+               f"{torch.equal(got, want)} (max abs err {e})")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kind} {what}: kernel != plain version")
+
+    for mode in ("tilemt", "tilebw"):
+        say(7, f"closest pass mode={mode}: "
+               f"{cuda_ms(lambda: closest(mode), 5):.3f} ms [{card}]")
+    for mode in ("banded", "tilebw", "resident"):
+        ms = cuda_ms(lambda: nee(closest("tilemt"), mode), 5)
+        say(7, f"closest (tilemt) + NEE with occluder mode={mode}: "
+               f"{ms:.3f} ms [{card}]")
+    records = []
+    for kind, what in (("tilebw", "primary (closest)"),
+                       ("resident", "shadow (any-hit)")):
+        args = captured[(kind, what)]
+        k_ms = cuda_ms(lambda: wrapped[kind](*args), 10)
+        p_ms = cuda_ms(lambda: plain[kind](*args), 3)
+        say(7, f"{KERNELS[kind]['name']} on the {what} batch "
+               f"({args[3].shape[0]} rays): kernel {k_ms:.4f} ms, plain "
+               f"PyTorch {p_ms:.4f} ms [{card}]")
+        records.append(dict(KERNELS[kind], launches=launches[kind],
+                            max_abs_err=err[kind], ms=k_ms, plain_ms=p_ms))
+    args = captured[("tilebw", "shadow (any-hit)")]
+    say(7, f"traverse_tilebw on the shadow (any-hit) batch "
+           f"({args[3].shape[0]} rays): kernel "
+           f"{cuda_ms(lambda: wrapped['tilebw'](*args), 10):.4f} ms, plain "
+           f"PyTorch {cuda_ms(lambda: plain['tilebw'](*args), 3):.4f} ms "
+           f"[{card}]")
+    return records
 
 
 if __name__ == "__main__":

@@ -47,11 +47,12 @@ def camera_from_arrays(arrays: Mapping, device=None) -> Camera:
 
 
 def grid_from_arrays(arrays: Mapping, device=None) -> BlockGrid:
-    """A JAX PallasGrid's fields; `tw` and `t_margin` (used only by the
-    unported Baldwin-Weber kernel) are ignored."""
+    """A JAX PallasGrid's fields."""
     return BlockGrid(
         super_lo=_t(arrays["super_lo"], device),
         super_hi=_t(arrays["super_hi"], device),
         blocks_packed=_t(arrays["blocks_packed"], device),
-        tb=_t(arrays["tb"], device), tri_attr=_t(arrays["tri_attr"], device),
-        top_s=int(arrays["top_s"]), top_m=int(arrays["top_m"]))
+        tb=_t(arrays["tb"], device), tw=_t(arrays["tw"], device),
+        tri_attr=_t(arrays["tri_attr"], device),
+        top_s=int(arrays["top_s"]), top_m=int(arrays["top_m"]),
+        t_margin=float(arrays["t_margin"]))

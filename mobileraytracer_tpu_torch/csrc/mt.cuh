@@ -1,6 +1,7 @@
-// Shared pieces of the two traversal kernels (traverse_banded.cu,
-// traverse_tilemt.cu): the block layout and one ray's Moller-Trumbore scan
-// over one 128-triangle block held in shared memory.
+// Shared pieces of the Moller-Trumbore traversal kernels
+// (traverse_banded.cu, traverse_tilemt.cu, traverse_resident.cu): the block
+// layout and one ray's Moller-Trumbore scan over one 128-triangle block,
+// held in shared memory (or, for the resident kernel, read in place).
 //
 // The arithmetic is the JAX package's, operation for operation
 // (mobileraytracer_tpu/ops/pallas_bvh.py:524-548 and :1368-1391, which

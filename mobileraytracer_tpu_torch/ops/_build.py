@@ -29,7 +29,16 @@ LIB_NAME = "libmrt_traverse.so"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_FUNCS = ("mrt_traverse_banded", "mrt_traverse_tilemt")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Launcher argument types: five device pointers, the ints, then any host
+# pointer and the stream.
+_FUNCS = {
+    "mrt_traverse_banded": [_P] * 5 + [_I] * 3 + [_P],
+    "mrt_traverse_tilemt": [_P] * 5 + [_I] * 3 + [_P],
+    "mrt_traverse_tilebw": [_P] * 5 + [_I] * 3
+                           + [ctypes.POINTER(ctypes.c_float), _P],
+    "mrt_traverse_resident": [_P] * 5 + [_I] * 3 + [_P],
+}
 _lib = None
 BUILD_INFO = {"seconds": None, "built": False, "path": None, "log": ""}
 
@@ -89,10 +98,9 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name in _FUNCS:
+        for name, argtypes in _FUNCS.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + \
-                [ctypes.c_void_p]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -13,7 +13,10 @@ grouped 16 blocks to a "super".  A traversal then runs in three stages:
   2. a hand-written CUDA kernel walks the window (ops/kernels.py):
      `traverse_tilemt` for coherent 128-ray tiles (the primary pass),
      `traverse_banded` for 8 bands of 16 rays (the walker tail, every
-     shadow ray, and the refill);
+     shadow ray, and the refill); the scene queries' other modes run
+     `traverse_tile` (Baldwin-Weber selection, "tilebw") and
+     `traverse_resident` (any-hit over the block table in partitions,
+     "resident");
   3. `_refill_exact`: rays whose best hit is beyond their window's cutoff
      get fresh per-ray windows (each ray duplicated into a whole subtile)
      until resolved, then a dense naive backstop, so every traversal
@@ -58,18 +61,22 @@ LOOPS = {"refill": 0, "dense": 0}
 
 @dataclasses.dataclass
 class BlockGrid(TensorData):
-    """Two-level block table (the JAX package's PallasGrid without the
-    Baldwin-Weber operand `tw`, which only the unported "tilebw" kernel
-    reads)."""
+    """Two-level block table (the JAX package's PallasGrid)."""
     super_lo: torch.Tensor       # (3, K1) f32
     super_hi: torch.Tensor       # (3, K1) f32
     # Per-block metadata, one row per super, component-grouped:
     # [lox x BPS][loy x BPS][loz][hix][hiy][hiz][first][count].
     blocks_packed: torch.Tensor  # (K1, 8 * BPS) f32
     tb: torch.Tensor             # (NB, 16, LANES) f32, NB = K1 * BPS
+    # The Baldwin-Weber operand of the "tilebw" kernel, one (8, 3*LANES)
+    # block per tb block (layout in build_blocks).
+    tw: torch.Tensor             # (NB, 8, 3 * LANES) f32
     tri_attr: torch.Tensor       # (N, 32) f32 (layout in intersect._fill_hit)
     top_s: int = DEFAULT_TOP_S
     top_m: int = DEFAULT_TOP_M
+    # Absolute t margin of the "tilebw" kernel's loose and strict tests,
+    # covering the Baldwin-Weber evaluation error at the scene's extent.
+    t_margin: float = 1e-3
 
     @property
     def num_supers(self) -> int:
@@ -122,7 +129,28 @@ def build_blocks(tris: Triangles, blocks_per_super: int = DEFAULT_BPS,
     ac = tris2.ac.numpy()
     va = tris2.valid.numpy().astype(np.float32)
 
+    # Baldwin-Weber rows per triangle, precomputed in float64 in the global
+    # frame: n_hat the unit normal (plane distance n_hat . X + d_n), w_u
+    # and w_v the gradients of the barycentrics u and v (w_u . ab = 1,
+    # w_u . ac = 0, w_u . n = 0, and symmetrically), with offsets c_u, c_v.
+    pa64, ab64, ac64 = (pa.astype(np.float64), ab.astype(np.float64),
+                        ac.astype(np.float64))
+    n_vec = np.cross(ab64, ac64)
+    n_sq = np.einsum("ij,ij->i", n_vec, n_vec)
+    n_hat = n_vec / np.maximum(np.sqrt(np.maximum(n_sq, 1e-300)),
+                               1e-150)[:, None]
+    inv_nsq = 1.0 / np.maximum(n_sq, 1e-300)
+    w_u = np.cross(ac64, n_vec) * inv_nsq[:, None]
+    w_v = np.cross(n_vec, ab64) * inv_nsq[:, None]
+    d_n = -np.einsum("ij,ij->i", n_hat, pa64)
+    c_u = -np.einsum("ij,ij->i", w_u, pa64)
+    c_v = -np.einsum("ij,ij->i", w_v, pa64)
+
     tb = np.zeros((padded, 16, lanes), np.float32)
+    # tw per block, column groups [n_hat | w_u | w_v] of `lanes` each: rows
+    # 0-2 the xyz of the row vectors, row 3 their offsets [d_n | c_u | c_v],
+    # row 4 [valid | slot | |ab x ac|], rows 5-7 zero.
+    tw = np.zeros((padded, 8, 3 * lanes), np.float32)
     bf = bfirst_p.reshape(-1)
     bc = bcount_p.reshape(-1)
     for bi in range(padded):
@@ -137,6 +165,19 @@ def build_blocks(tris: Triangles, blocks_per_super: int = DEFAULT_BPS,
         tb[bi, 9, :cnt] = va[sl]
         # Global triangle slot per lane (f32, exact below 2^24).
         tb[bi, 10, :cnt] = np.arange(f0, f0 + cnt, dtype=np.float32)
+        tw[bi, 0:3, :cnt] = n_hat[sl].T
+        tw[bi, 3, :cnt] = d_n[sl]
+        tw[bi, 0:3, lanes:lanes + cnt] = w_u[sl].T
+        tw[bi, 3, lanes:lanes + cnt] = c_u[sl]
+        tw[bi, 0:3, 2 * lanes:2 * lanes + cnt] = w_v[sl].T
+        tw[bi, 3, 2 * lanes:2 * lanes + cnt] = c_v[sl]
+        tw[bi, 4, :cnt] = va[sl]
+        tw[bi, 4, lanes:lanes + cnt] = np.arange(f0, f0 + cnt,
+                                                 dtype=np.float32)
+        # The exact det is (n_hat . d) * |ab x ac|: the kernel's det gates
+        # scale |n_hat . d| by this.
+        tw[bi, 4, 2 * lanes:2 * lanes + cnt] = np.sqrt(
+            np.maximum(n_sq[sl], 0.0)).astype(np.float32)
 
     packed = np.zeros((k1, 8, bps), np.float32)
     packed[:, 0:3] = np.moveaxis(bmin_p, 2, 1)
@@ -160,9 +201,12 @@ def build_blocks(tris: Triangles, blocks_per_super: int = DEFAULT_BPS,
     t = lambda a: torch.from_numpy(np.array(a, order="C"))
     grid = BlockGrid(
         super_lo=t(bmin_p.min(1).T), super_hi=t(bmax_p.max(1).T),
-        blocks_packed=t(packed.reshape(k1, 8 * bps)), tb=t(tb),
+        blocks_packed=t(packed.reshape(k1, 8 * bps)), tb=t(tb), tw=t(tw),
         tri_attr=t(attr), top_s=min(top_s, k1),
-        top_m=min(top_m, k1 * bps))
+        top_m=min(top_m, k1 * bps),
+        # About 8x the 2-ulp Baldwin-Weber error at the scene's extent.
+        t_margin=float(max(1e-6, 2e-6 * float(
+            np.linalg.norm(bmax.max(0) - bmin.min(0))))) if k else 1e-6)
     return tris2, grid
 
 
@@ -469,17 +513,146 @@ def traverse_tilemt(grid: BlockGrid, tris: Triangles, o, d, t_init,
             torch.where(hit, sid_fin.to(torch.int32), -1).to(torch.int32))
 
 
-def _not_ported(mode: str, kernel: str):
-    def trav(*args, **kwargs):
-        raise NotImplementedError(
-            f'traversal mode "{mode}" needs the {kernel} kernel, which is not '
-            f"ported yet (ROADMAP.md Queue 2)")
-    return trav
+def _exact_mt_pair(tri_attr, o, d, slot_f, prev_f):
+    """The exact Moller-Trumbore re-test of one kept slot per ray (slot_f
+    f32, -1 = none) against the triangle table: (t, BIG where it fails;
+    ok)."""
+    s = torch.clamp(slot_f.to(torch.int32), min=0).long()
+    row = tri_attr[s]
+    t, ok = nv._mt_components(o, d, row[:, 0:3], row[:, 3:6], row[:, 6:9])
+    ok = ok & (slot_f >= 0.0) & (slot_f != prev_f)
+    return torch.where(ok, t, _BIG), ok
+
+
+def traverse_tile(grid: BlockGrid, tris: Triangles, o, d, t_init,
+                  prev_kind, prev_id, any_hit: bool = False):
+    """Closest-hit (or any-hit) through the Baldwin-Weber tile kernel, an
+    exact re-test of the two pairs it keeps per ray, and the exact banded
+    refill of every ray the kernel flags.  Same contract as `traverse`.
+
+    The kernel's affine evaluation is approximate, so it only selects
+    (kernels.tile_plain).  A closest-hit ray is flagged when a third loose
+    pair lies within the error window of the second, when both kept pairs
+    fail the exact test while a third exists, or when it saw an
+    ill-conditioned pair (amb); an any-hit ray when it is not occluded by a
+    strict pair or a kept pair and a third pair or amb exists."""
+    b = o.shape[0]
+    t0 = _t_init(t_init, o)
+    rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, TILE)
+    op, dp = rays[:, 0:3], rays[:, 3:6]
+    ntile = bp // TILE
+    cap0 = rays[:, 6].reshape(ntile, TILE).amax(1)
+    cg, _, ce, cut = _candidates(grid, op, dp, cap=cap0, st=TILE,
+                                 top_s=TILE_TOP_S, top_m=TILE_TOP_M)
+    tmg = grid.t_margin
+    out = kernels.traverse_tile(grid.tw, cg, ce, rays, cg.shape[1], any_hit,
+                                tmg)
+    t1, s1, t2, s2 = out[:, 0], out[:, 1], out[:, 2], out[:, 3]
+    t3, ts_m, ts_s = out[:, 4], out[:, 5], out[:, 6]
+    amb = out[:, 8] > 0.5
+    prevf = rays[:, 7]
+    t0p = rays[:, 6]
+    e1, ok1 = _exact_mt_pair(grid.tri_attr, op, dp, s1, prevf)
+    e2, ok2 = _exact_mt_pair(grid.tri_attr, op, dp, s2, prevf)
+    lanes_pad = torch.arange(bp, device=o.device) >= b
+
+    floor_r = cut.repeat_interleave(TILE)
+    if not any_hit:
+        t_ex = torch.minimum(e1, e2)
+        sid = torch.where(e1 <= e2, s1, s2)
+        window = t2 * kernels._f32(1.0 + 2.0 * kernels.TREL) \
+            + kernels._f32(2.0 * tmg)
+        flag = (((t3 < _BIG) & (t3 <= window))
+                | ((t_ex >= _BIG) & (t3 < _BIG)) | amb)
+        t_cur = torch.minimum(t_ex, t0p)
+    else:
+        occ1 = ok1 & (e1 < t0p)
+        occ2 = ok2 & (e2 < t0p)
+        strict_occ = ts_s >= 0
+        occ = strict_occ | occ1 | occ2
+        t_cur = torch.where(occ1, e1, torch.where(
+            occ2, e2, torch.where(strict_occ, ts_m, t0p)))
+        sid = torch.where(occ1, s1, torch.where(
+            occ2, s2, torch.where(strict_occ, ts_s, -1.0)))
+        flag = ~occ & ((t3 < _BIG) | amb)
+        floor_r = torch.where(occ, _BIG, floor_r)   # occluded = resolved
+
+    floor_r = torch.where(flag, -_BIG, floor_r)
+    floor_r = torch.where(lanes_pad, _BIG, floor_r)
+    t_cur = torch.where(lanes_pad, 0.0, t_cur)
+    t_fin, sid_fin = _refill_exact(grid, tris, rays, t_cur, sid, floor_r,
+                                   any_hit, bp)
+    t_fin, sid_fin = t_fin[:b], sid_fin[:b]
+    hit = t_fin < t0
+    return (torch.where(hit, t_fin, _BIG),
+            torch.where(hit, sid_fin.to(torch.int32), -1).to(torch.int32))
+
+
+def _resident_lists(grid: BlockGrid, cand_gid, cand_entry):
+    """The resident kernel's inputs from banded windows: the block table
+    zero-padded to whole NBP-block partitions, the run starts per subtile
+    and partition ((nt, P + 1) int32, capped at the subtile's valid count)
+    and each subtile's window sorted by block id, stably, padding entries
+    (key nb_pad + 1) last.  Returns (tb_pad, starts, glist, P)."""
+    nbp = kernels.NBP
+    nb = grid.tb.shape[0]
+    n_parts = -(-nb // nbp)
+    nb_pad = n_parts * nbp
+    valid = cand_entry < _BIG * 0.5
+    gid_key = torch.where(valid, cand_gid, nb_pad + 1)
+    gsort, order = torch.sort(gid_key, dim=1, stable=True)
+    glist = torch.gather(cand_gid, 1, order).contiguous()
+    bounds = torch.arange(n_parts + 1, device=cand_gid.device) * nbp
+    starts = (gsort[:, :, None] < bounds[None, None, :]).sum(1)
+    starts = torch.minimum(starts, valid.sum(1, keepdim=True)).to(
+        torch.int32).contiguous()
+    tb_pad = grid.tb
+    if nb_pad != nb:
+        tb_pad = torch.cat([grid.tb, grid.tb.new_zeros(
+            (nb_pad - nb,) + tuple(grid.tb.shape[1:]))], 0)
+    return tb_pad, starts, glist, n_parts
+
+
+def traverse_resident(grid: BlockGrid, tris: Triangles, o, d, t_init,
+                      prev_kind, prev_id, any_hit: bool = True):
+    """Any-hit through the resident-table kernel over the banded windows
+    (`_resident_lists`), plus the exact banded refill; same contract as
+    `traverse(any_hit=True)`.  Per-partition results combine to the
+    smallest t, with the lowest slot at that t.  Closest-hit queries go to
+    `traverse`.  The default any_hit=True is the JAX package's, so a query
+    through `intersect_scene_blocks(mode="resident")` gets any-hit answers,
+    as it does there (ROADMAP.md Queue 3)."""
+    if not any_hit:
+        return traverse(grid, tris, o, d, t_init, prev_kind, prev_id,
+                        any_hit=False)
+    b = o.shape[0]
+    t0 = _t_init(t_init, o)
+    rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, GROUP * ST)
+    op, dp = rays[:, 0:3], rays[:, 3:6]
+    cap0 = rays[:, 6].reshape(bp // ST, ST).amax(1)
+    cand_gid, _, cand_entry, cut = _candidates(grid, op, dp, cap=cap0)
+    m = cand_gid.shape[1]
+
+    tb_pad, starts, glist, n_parts = _resident_lists(grid, cand_gid,
+                                                     cand_entry)
+    tp, sp = kernels.traverse_resident(tb_pad, starts, glist, rays, m,
+                                       n_parts)
+    t = tp.amin(0)
+    sid = torch.where(tp <= t[None, :], sp, _BIG).amin(0)
+    sid = torch.where(t < _BIG * 0.5, sid, -1.0)
+
+    lane = torch.arange(bp, device=o.device)
+    floor_r = torch.where(lane >= b, _BIG, cut.repeat_interleave(ST))
+    floor_r = torch.where(t < rays[:, 6], _BIG, floor_r)
+    t, sid = _refill_exact(grid, tris, rays, t, sid, floor_r, True, bp)
+    t, sid = t[:b], sid[:b]
+    hit = t < t0
+    return (torch.where(hit, t, _BIG),
+            torch.where(hit, sid.to(torch.int32), -1).to(torch.int32))
 
 
 _TRAVERSALS = {"banded": traverse, "tilemt": traverse_tilemt,
-               "tilebw": _not_ported("tilebw", "Baldwin-Weber tile"),
-               "resident": _not_ported("resident", "resident-table")}
+               "tilebw": traverse_tile, "resident": traverse_resident}
 DEFAULT_MODE = "tilemt"
 
 

@@ -1,11 +1,14 @@
-"""The two traversal kernels: public wrappers, plain PyTorch versions and
+"""The four traversal kernels: public wrappers, plain PyTorch versions and
 launch counters.
 
-`traverse_tilemt` replaces the tile-MT Pallas kernel
-(mobileraytracer_tpu/ops/pallas_bvh.py `_make_tilemt_kernel` /
-`_traverse_tilemt_padded`); `traverse_banded` replaces the banded one
-(`_make_kernel` / `_traverse_padded`).  Both CUDA kernels live in
-`../csrc/` and are built at first use by `_build.py`.
+Each replaces one Pallas kernel of mobileraytracer_tpu/ops/pallas_bvh.py:
+`traverse_banded` the banded one (`_make_kernel` / `_traverse_padded`),
+`traverse_tilemt` the tile-MT one (`_make_tilemt_kernel` /
+`_traverse_tilemt_padded`), `traverse_tile` the Baldwin-Weber tile one
+(`_make_tile_kernel` / `_traverse_tile_padded`) and `traverse_resident`
+the resident-table one (`_make_resident_kernel` /
+`_traverse_resident_padded`).  The CUDA kernels live in `../csrc/` and
+are built at first use by `_build.py`.
 
 A wrapper given CPU tensors runs the kernel's plain version; given CUDA
 tensors it launches the kernel or raises.  There is no fallback from one
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import constants as C
@@ -37,7 +41,14 @@ TILE = GROUP * ST              # rays per program (both kernels)
 _ROWS = 16                     # rows per block in tb
 _BIG = C.RAY_LENGTH_MAX
 
-LAUNCHES = {"banded": 0, "tilemt": 0}
+NBP = 640                      # blocks per resident-table partition
+
+# Baldwin-Weber tile kernel: barycentric margin and relative t margin of
+# its loose and strict acceptance (pallas_bvh.py:1092-1093).
+MU = 2e-3
+TREL = 3e-4
+
+LAUNCHES = {"banded": 0, "tilemt": 0, "tilebw": 0, "resident": 0}
 
 
 def reset_launches() -> None:
@@ -180,35 +191,255 @@ def tilemt_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     return out
 
 
+def _f32(x: float) -> float:
+    """x rounded once to float32, as a Python float."""
+    return float(np.float32(x))
+
+
+def bw_consts(tmg: float):
+    """The tile kernel's constants, each formed in float64 from Python
+    floats and rounded once to float32, as the JAX package's arithmetic
+    rounds them where they meet a float32 array.  The CUDA kernel gets the
+    same values."""
+    e = C.EPSILON
+    return (_f32(0.5 * e), _f32(1.5 * e), _f32(-MU), _f32(MU),
+            _f32(1.0 + MU), _f32(1.0 - MU), _f32(e - tmg), _f32(e + tmg),
+            _f32(1.0 + TREL), _f32(1.0 - TREL), _f32(tmg))
+
+
+_BIG2 = _f32(2.0 * _BIG)
+
+
+def _argmin_slot(x, slot, m):
+    """The lowest slot among lanes whose x is <= m (the row minimum)."""
+    return torch.where(x <= m, slot, _BIG2).amin(-1, keepdim=True)
+
+
+def _bw_round(w, ox, oy, oz, dx, dy, dz, prev, t_hi, any_hit, k):
+    """One round of the tile kernel: rays (n, TILE, 1) against Baldwin-Weber
+    blocks w (n, 8, 3*LANES); t_hi holds each ray's loose and strict upper
+    t limits.  Returns the round's (m1, sl1, m2, sl2, m3, mo, so, amb),
+    each (n, TILE, 1).  Sums run x, y, z, then the offset, each operation
+    rounded."""
+    half_eps, eps15, neg_mu, mu, one_p_mu, one_m_mu, eps_m_tmg, eps_p_tmg = \
+        k[:8]
+    hi_loose, hi_strict = t_hi
+    rows = w[:, :, None, :]                               # (n, 8, 1, 384)
+
+    def group(g):
+        r = rows[..., g * LANES:(g + 1) * LANES]
+        at_o = ox * r[:, 0] + oy * r[:, 1] + oz * r[:, 2] + r[:, 3]
+        along_d = dx * r[:, 0] + dy * r[:, 1] + dz * r[:, 2]
+        return at_o, along_d
+
+    no, nd = group(0)
+    uo, ud = group(1)
+    vo, vd = group(2)
+    inv_nd = 1.0 / torch.where(torch.abs(nd) < half_eps, 1.0, nd)
+    t = -no * inv_nd
+    u = uo + t * ud
+    v = vo + t * vd
+    meta = rows[:, 4]                                     # (n, 1, 384)
+    tvalid = meta[..., 0:LANES] > 0.5
+    slot_b = meta[..., LANES:2 * LANES].expand_as(t)
+    nlen = meta[..., 2 * LANES:3 * LANES]
+    base = tvalid & (slot_b != prev)
+    det_s = torch.abs(nd) * nlen
+    well_cond = torch.abs(nd) >= half_eps
+    loose = (base & (det_s >= half_eps) & well_cond & (u >= neg_mu)
+             & (v >= neg_mu) & (u + v <= one_p_mu) & (t >= eps_m_tmg)
+             & (t <= hi_loose))
+    amb = (base & (det_s >= half_eps) & ~well_cond).any(-1, keepdim=True)
+    strict = (base & (det_s >= eps15) & well_cond & (u >= mu) & (v >= mu)
+              & (u + v <= one_m_mu) & (t >= eps_p_tmg) & (t <= hi_strict))
+    tstr = torch.where(strict, t, _BIG2)
+    mo = tstr.amin(-1, keepdim=True)
+    so = _argmin_slot(tstr, slot_b, mo)
+
+    # The round's three smallest tracked t, with the slots of the first
+    # two.  The order of the slot resets is the JAX kernel's (:1207-1218):
+    # m3 masks with sl2 before sl2 is reset.
+    track = (loose & ~strict) if any_hit else loose
+    tl = torch.where(track, t, _BIG2)
+    m1 = tl.amin(-1, keepdim=True)
+    sl1 = _argmin_slot(tl, slot_b, m1)
+    sl1 = torch.where(m1 < _BIG, sl1, -1.0)
+    tl2 = torch.where(slot_b == sl1, _BIG2, tl)
+    m2 = tl2.amin(-1, keepdim=True)
+    sl2 = _argmin_slot(tl2, slot_b, m2)
+    m3 = torch.where((slot_b == sl2) & (tl2 <= m2), _BIG2, tl2).amin(
+        -1, keepdim=True)
+    sl2 = torch.where(m2 < _BIG, sl2, -1.0)
+    return m1, sl1, m2, sl2, m3, mo, so, amb
+
+
+_TILE_CHUNK = 512    # tiles per pass of tile_plain (bounds its temporaries)
+
+
+def tile_plain(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
+               tmg: float):
+    """Baldwin-Weber tile walk.  One program = TILE rays on one shared list
+    of m candidate blocks (rows of cand_gid/cand_entry, (Bp/TILE, m)), read
+    from tw (NB, 8, 3*LANES).  Per round, every (ray, lane) pair gets the
+    plane distance t and barycentrics u, v from six affine forms, then
+    loose and strict acceptance with the margins MU, TREL and tmg; each ray
+    keeps its three smallest loose t (slots of the first two; any-hit:
+    only loose-but-not-strict pairs), its smallest strict t and slot, and
+    an ambiguity flag for pairs whose |n.d| is too small to trust.  The
+    tile stops after the round where r + 1 == m or entry[r + 1] >= the
+    tile's largest bound: closest hit min(ts_m (1 + TREL) + tmg, cap);
+    any-hit cap, or -2 BIG once the ray has a strict hit.
+    Returns (Bp, 16) f32 rows [t1, s1, t2, s2, t3, ts_m, ts_s, rounds,
+    amb, 0 x 7].  Tiles are independent and run in chunks."""
+    bp = rays.shape[0]
+    nt = bp // TILE
+    out = torch.zeros((bp, 16), dtype=torch.float32, device=rays.device)
+    for c0 in range(0, nt, _TILE_CHUNK):
+        c1 = min(nt, c0 + _TILE_CHUNK)
+        out[c0 * TILE:c1 * TILE] = _tile_chunk(
+            tw, cand_gid[c0:c1], cand_entry[c0:c1],
+            rays[c0 * TILE:c1 * TILE], m, any_hit, tmg)
+    return out
+
+
+def _tile_chunk(tw, cand_gid, cand_entry, rays, m, any_hit, tmg):
+    k = bw_consts(tmg)
+    one_p_trel, one_m_trel, tmg32 = k[8], k[9], k[10]
+    bp = rays.shape[0]
+    nt = bp // TILE
+    dev = rays.device
+    gid = cand_gid.reshape(nt, m).long()
+    ent = cand_entry.reshape(nt, m)
+    ox, oy, oz, dx, dy, dz, cap, prev = _ray_parts(rays.reshape(nt, TILE, 8))
+    hi_loose = cap * one_p_trel + tmg32
+    hi_strict = cap * one_m_trel - tmg32
+    full = lambda v: torch.full((nt, TILE, 1), v, dtype=torch.float32,
+                                device=dev)
+    t1, t2, t3, ts_m = full(_BIG2), full(_BIG2), full(_BIG2), full(_BIG2)
+    s1, s2, ts_s, amb = full(-1.0), full(-1.0), full(-1.0), full(0.0)
+    rounds = torch.zeros(nt, dtype=torch.float32, device=dev)
+    alive = torch.ones(nt, dtype=torch.bool, device=dev)
+    r = 0
+    while True:
+        i = alive.nonzero()[:, 0]
+        if i.numel() == 0:
+            break
+        m1, sl1, m2, sl2, m3, mo, so, amb_r = _bw_round(
+            tw[gid[i, r]], ox[i], oy[i], oz[i], dx[i], dy[i], dz[i],
+            prev[i], (hi_loose[i], hi_strict[i]), any_hit, k)
+        amb[i] = torch.maximum(amb[i], amb_r.to(torch.float32))
+        tsm, tss = ts_m[i], ts_s[i]
+        better_o = mo < tsm
+        ts_m[i] = torch.where(better_o, mo, tsm)
+        ts_s[i] = torch.where(better_o & (mo < _BIG), so, tss)
+
+        # Merge the round's sorted triple into the running one.
+        a1, b1, a2, b2, a3 = t1[i], s1[i], t2[i], s2[i], t3[i]
+        take1 = m1 < a1
+        o_t = torch.where(take1, a1, m1)
+        o_s = torch.where(take1, b1, sl1)
+        a_t = torch.where(take1, m2, a2)
+        a_s = torch.where(take1, sl2, b2)
+        take2 = a_t < o_t
+        t3[i] = torch.minimum(
+            torch.minimum(torch.maximum(a1, m2), torch.maximum(a2, m1)),
+            torch.minimum(a3, m3))
+        t1[i] = torch.where(take1, m1, a1)
+        s1[i] = torch.where(take1, sl1, b1)
+        t2[i] = torch.where(take2, a_t, o_t)
+        s2[i] = torch.where(take2, a_s, o_s)
+        rounds[i] = float(r + 1)
+
+        if any_hit:
+            bound = torch.where(ts_m[i] < _BIG, -_BIG2, cap[i])
+        else:
+            bound = torch.minimum(ts_m[i] * one_p_trel + tmg32, cap[i])
+        stop = ent[i, min(r + 1, m - 1)] >= bound.amax((1, 2))
+        if r + 1 >= m:
+            stop = torch.ones_like(stop)
+        alive[i] = ~stop
+        r += 1
+    out = torch.zeros((bp, 16), dtype=torch.float32, device=dev)
+    for c, x in enumerate((t1, s1, t2, s2, t3, ts_m, ts_s)):
+        out[:, c] = x.reshape(-1)
+    out[:, 7] = rounds[:, None].expand(nt, TILE).reshape(-1)
+    out[:, 8] = amb.reshape(-1)
+    return out
+
+
+_RES_CHUNK = 2048    # (partition, program) pairs per round of resident_plain
+
+
+def resident_plain(tb, starts, glist, rays, m: int, n_parts: int):
+    """Resident-table any-hit walk.  tb is the block table zero-padded to
+    n_parts * NBP blocks; the grid is (partition p, program).  One program =
+    GROUP bands of ST rays; band g's gid-sorted list (a row of glist,
+    (Bp/ST, m)) holds its partition-p blocks at [s0, s1) = starts[g, p],
+    starts[g, p + 1] (starts (Bp/ST, n_parts + 1)).  Round r tests, for every
+    band, block clip(s0 + r, s0, max(s1 - 1, s0)) of its list, read at
+    clip(gid - p NBP, 0, NBP - 1) inside partition p (list positions past
+    the program's GROUP*m entries read its last one).  A band is alive while
+    s0 + r < s1 and one of its rays is unoccluded; the program runs while
+    any band is alive, and dead bands keep testing their clamped block.
+    Returns (t, slot), each (n_parts, Bp) f32."""
+    bp = rays.shape[0]
+    ng = bp // TILE
+    dev = rays.device
+    st = starts.reshape(ng, GROUP, n_parts + 1).long()
+    gl = glist.reshape(ng, GROUP * m).long()
+    ox, oy, oz, dx, dy, dz, t_init, prev = _ray_parts(
+        rays.reshape(ng, GROUP, ST, 8))
+    t_best = t_init.expand(n_parts, ng, GROUP, ST, 1).clone()
+    slot_best = torch.full_like(t_best, -1.0)
+    parts = torch.arange(n_parts, device=dev)[:, None].expand(n_parts, ng)
+    progs = torch.arange(ng, device=dev)[None, :].expand(n_parts, ng)
+    s0 = st[progs, :, parts]                              # (P, ng, G)
+    s1 = st[progs, :, parts + 1]
+    band = torch.arange(GROUP, device=dev) * m
+
+    def live(r, p, g, tb_):
+        has = s0[p, g] + r < s1[p, g]
+        not_occ = ~(tb_ < t_init[g]).all(-1).all(-1)      # (k, G)
+        return (has & not_occ).any(1)
+
+    alive = live(0, parts.reshape(-1), progs.reshape(-1),
+                 t_best.reshape(-1, GROUP, ST, 1)).reshape(n_parts, ng)
+    r = 0
+    while True:
+        pairs = alive.nonzero()
+        if pairs.shape[0] == 0:
+            break
+        for c0 in range(0, pairs.shape[0], _RES_CHUNK):
+            p, g = pairs[c0:c0 + _RES_CHUNK].unbind(1)
+            a, b = s0[p, g], s1[p, g]
+            idx = torch.minimum(a + r, torch.maximum(b - 1, a))
+            pos = torch.clamp(band + idx, max=GROUP * m - 1)
+            lid = torch.clamp(gl[g[:, None], pos] - p[:, None] * NBP, 0,
+                              NBP - 1)
+            blk = tb[p[:, None] * NBP + lid]              # (k, G, 16, LANES)
+            tn, sn = _mt_round(blk, ox[g], oy[g], oz[g], dx[g], dy[g],
+                               dz[g], prev[g], t_best[p, g],
+                               slot_best[p, g])
+            t_best[p, g] = tn
+            slot_best[p, g] = sn
+            alive[p, g] = live(r + 1, p, g, tn)
+        r += 1
+    return (t_best.reshape(n_parts, bp).contiguous(),
+            slot_best.reshape(n_parts, bp).contiguous())
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def _check(tb, cand_gid, cand_entry, rays, m, rows_per_list):
-    dev = rays.device
-    for name, x, dt in (("tb", tb, torch.float32),
-                        ("cand_gid", cand_gid, torch.int32),
-                        ("cand_entry", cand_entry, torch.float32),
-                        ("rays", rays, torch.float32)):
+def _check_tensors(dev, named):
+    for name, x, dt in named:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, rays on {dev}")
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tb.dim() != 3 or tb.shape[1:] != (_ROWS, LANES):
-        raise ValueError(f"tb must be (NB, {_ROWS}, {LANES}), got "
-                         f"{tuple(tb.shape)}")
-    bp = rays.shape[0]
-    if rays.dim() != 2 or rays.shape[1] != 8 or bp % TILE:
-        raise ValueError(f"rays must be (Bp, 8) with Bp a multiple of {TILE},"
-                         f" got {tuple(rays.shape)}")
-    want = (bp // rows_per_list, m)
-    if m < 1 or tuple(cand_gid.shape) != want \
-            or tuple(cand_entry.shape) != want:
-        raise ValueError(f"candidates must be {want}, got "
-                         f"{tuple(cand_gid.shape)} / "
-                         f"{tuple(cand_entry.shape)}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and ST != 16:
@@ -216,24 +447,54 @@ def _check(tb, cand_gid, cand_entry, rays, m, rows_per_list):
                          f"not MRT_SUBTILE={ST}")
 
 
+def _check_rays(rays):
+    bp = rays.shape[0]
+    if rays.dim() != 2 or rays.shape[1] != 8 or bp % TILE:
+        raise ValueError(f"rays must be (Bp, 8) with Bp a multiple of {TILE},"
+                         f" got {tuple(rays.shape)}")
+    return bp
+
+
+def _check(table, cand_gid, cand_entry, rays, m, rows_per_list,
+           name="tb", block=(_ROWS, LANES)):
+    _check_tensors(rays.device, ((name, table, torch.float32),
+                                 ("cand_gid", cand_gid, torch.int32),
+                                 ("cand_entry", cand_entry, torch.float32),
+                                 ("rays", rays, torch.float32)))
+    if table.dim() != 3 or tuple(table.shape[1:]) != block:
+        raise ValueError(f"{name} must be (NB, {block[0]}, {block[1]}), got "
+                         f"{tuple(table.shape)}")
+    bp = _check_rays(rays)
+    want = (bp // rows_per_list, m)
+    if m < 1 or tuple(cand_gid.shape) != want \
+            or tuple(cand_entry.shape) != want:
+        raise ValueError(f"candidates must be {want}, got "
+                         f"{tuple(cand_gid.shape)} / "
+                         f"{tuple(cand_entry.shape)}")
+
+
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _launch(fn: str, name: str, tb, cand_gid, cand_entry, rays, out,
-            any_hit: bool, m: int):
+def _launch(fn: str, name: str, dev, *args):
+    """Calls launcher `fn` of the library with `args` and PyTorch's current
+    stream, raises on a launch error, and counts the launch."""
     from . import _build
     lib = _build.load()
-    stream = torch.cuda.current_stream(rays.device).cuda_stream
-    err = getattr(lib, fn)(_ptr(tb), _ptr(cand_gid), _ptr(cand_entry),
-                           _ptr(rays), _ptr(out),
-                           ctypes.c_int(rays.shape[0] // TILE),
-                           ctypes.c_int(m), ctypes.c_int(int(any_hit)),
-                           ctypes.c_void_p(stream))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{_build.error_string(err)}")
     LAUNCHES[name] += 1
+
+
+def _walk_args(table, cand_gid, cand_entry, rays, out, n, m, any_hit):
+    return (_ptr(table), _ptr(cand_gid), _ptr(cand_entry), _ptr(rays),
+            _ptr(out), ctypes.c_int(n), ctypes.c_int(m),
+            ctypes.c_int(int(any_hit)))
 
 
 def traverse_banded(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
@@ -245,9 +506,9 @@ def traverse_banded(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     bp = rays.shape[0]
     out = torch.empty((3, bp), dtype=torch.float32, device=rays.device)
     if bp:
-        with torch.cuda.device(rays.device):
-            _launch("mrt_traverse_banded", "banded", tb, cand_gid,
-                    cand_entry, rays, out, any_hit, m)
+        _launch("mrt_traverse_banded", "banded", rays.device,
+                *_walk_args(tb, cand_gid, cand_entry, rays, out, bp // TILE,
+                            m, any_hit))
     return out[0], out[1], out[2]
 
 
@@ -260,7 +521,55 @@ def traverse_tilemt(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     bp = rays.shape[0]
     out = torch.empty((bp, 4), dtype=torch.float32, device=rays.device)
     if bp:
-        with torch.cuda.device(rays.device):
-            _launch("mrt_traverse_tilemt", "tilemt", tb, cand_gid,
-                    cand_entry, rays, out, any_hit, m)
+        _launch("mrt_traverse_tilemt", "tilemt", rays.device,
+                *_walk_args(tb, cand_gid, cand_entry, rays, out, bp // TILE,
+                            m, any_hit))
     return out
+
+
+def traverse_tile(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
+                  tmg: float):
+    """Baldwin-Weber tile kernel (see tile_plain).  tw is (NB, 8, 3*LANES);
+    cand_gid/cand_entry are (Bp/TILE, m); tmg is the grid's t_margin.
+    Returns (Bp, 16) f32 [t1, s1, t2, s2, t3, ts_m, ts_s, rounds, amb,
+    0 x 7]."""
+    _check(tw, cand_gid, cand_entry, rays, m, TILE, "tw", (8, 3 * LANES))
+    if rays.device.type == "cpu":
+        return tile_plain(tw, cand_gid, cand_entry, rays, m, any_hit, tmg)
+    bp = rays.shape[0]
+    out = torch.empty((bp, 16), dtype=torch.float32, device=rays.device)
+    if bp:
+        consts = (ctypes.c_float * 11)(*bw_consts(tmg))
+        _launch("mrt_traverse_tilebw", "tilebw", rays.device,
+                *_walk_args(tw, cand_gid, cand_entry, rays, out, bp // TILE,
+                            m, any_hit), consts)
+    return out
+
+
+def traverse_resident(tb, starts, glist, rays, m: int, n_parts: int):
+    """Resident-table any-hit kernel (see resident_plain).  tb is padded to
+    n_parts * NBP blocks; starts is (Bp/ST, n_parts + 1) and glist (Bp/ST,
+    m), both int32.  Returns (t, slot), each (n_parts, Bp) f32."""
+    _check_tensors(rays.device, (("tb", tb, torch.float32),
+                                 ("starts", starts, torch.int32),
+                                 ("glist", glist, torch.int32),
+                                 ("rays", rays, torch.float32)))
+    bp = _check_rays(rays)
+    if n_parts < 1 or tuple(tb.shape) != (n_parts * NBP, _ROWS, LANES):
+        raise ValueError(f"tb must be ({n_parts} * {NBP}, {_ROWS}, {LANES}),"
+                         f" got {tuple(tb.shape)}")
+    if m < 1 or tuple(starts.shape) != (bp // ST, n_parts + 1) \
+            or tuple(glist.shape) != (bp // ST, m):
+        raise ValueError(f"starts/glist must be ({bp // ST}, {n_parts + 1})"
+                         f" / ({bp // ST}, {m}), got {tuple(starts.shape)} /"
+                         f" {tuple(glist.shape)}")
+    if rays.device.type == "cpu":
+        return resident_plain(tb, starts, glist, rays, m, n_parts)
+    out = torch.empty((2, n_parts, bp), dtype=torch.float32,
+                      device=rays.device)
+    if bp:
+        _launch("mrt_traverse_resident", "resident", rays.device,
+                _ptr(tb), _ptr(starts), _ptr(glist), _ptr(rays), _ptr(out),
+                ctypes.c_int(bp // TILE), ctypes.c_int(n_parts),
+                ctypes.c_int(m))
+    return out[0], out[1]

@@ -1,5 +1,5 @@
-"""The CUDA traversal kernels against their plain PyTorch versions, on the
-card.  Imports neither jax nor the JAX package, so it runs on a machine
+"""The four CUDA traversal kernels against their plain PyTorch versions,
+on the card.  Imports neither jax nor the JAX package, so it runs on a machine
 with PyTorch for CUDA alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -s
@@ -84,6 +84,36 @@ def test_banded_kernel_equals_plain(cuda_scene, any_hit):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tilebw_kernel_equals_plain(cuda_scene, any_hit):
+    scene = cuda_scene[0]
+    tb, cg, ce, rays, m, _ = _inputs(*cuda_scene, K.TILE, any_hit)
+    args = (scene.bvh.tw, cg, ce, rays, m, any_hit, scene.bvh.t_margin)
+    before = K.LAUNCHES["tilebw"]
+    got = K.traverse_tile(*args)
+    assert K.LAUNCHES["tilebw"] == before + 1
+    want = K.tile_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert len(torch.unique(got[:, 7])) > 1
+
+
+@pytest.mark.cuda
+def test_resident_kernel_equals_plain(cuda_scene):
+    scene = cuda_scene[0]
+    _, cg, ce, rays, m, _ = _inputs(*cuda_scene, K.ST, True)
+    tb_pad, starts, glist, n_parts = bt._resident_lists(scene.bvh, cg, ce)
+    args = (tb_pad, starts, glist, rays, m, n_parts)
+    before = K.LAUNCHES["resident"]
+    got = torch.stack(K.traverse_resident(*args))
+    assert K.LAUNCHES["resident"] == before + 1
+    want = torch.stack(K.resident_plain(*args))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[0] < rays[:, 6]).any())
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_version(cuda_scene):
     scene, o, d = cuda_scene
     K.reset_launches()
@@ -95,3 +125,14 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_scene):
     assert K.LAUNCHES["tilemt"] == 1
     assert np.isfinite(t.cpu().numpy()).all()
     assert (ids >= 0).float().mean() > 0.9
+    t2, ids2 = bt.traverse_tile(scene.bvh, scene.triangles, o, d,
+                                C.RAY_LENGTH_MAX, pk, pi)
+    assert K.LAUNCHES["tilebw"] == 1
+    assert torch.equal(ids2 >= 0, ids >= 0)
+    md = torch.where(ids >= 0, t * 0.5, 1.0)
+    occ = bt.traverse_resident(scene.bvh, scene.triangles, o, d, md, pk,
+                               pi)[1] >= 0
+    assert K.LAUNCHES["resident"] == 1
+    occ_b = bt.traverse(scene.bvh, scene.triangles, o, d, md, pk, pi,
+                        any_hit=True)[1] >= 0
+    assert torch.equal(occ, occ_b)

@@ -59,7 +59,7 @@ def test_cornell_frame_matches_jax(share):
     tc = convert.camera_from_arrays(arrays(jc))
     kernels.reset_launches()
     tout = trend.render_frame(tsp, tc, TConfig(**kw), sampling.prng_key(0))
-    assert kernels.LAUNCHES == {"banded": 0, "tilemt": 0}   # CPU: plain
+    assert not any(kernels.LAUNCHES.values())   # CPU: plain versions
     assert int(tout["rays"]) == int(jout["rays"]) == 8225
     assert_frames_match(tout["image"].numpy(), jout["image"])
     np.testing.assert_array_equal(

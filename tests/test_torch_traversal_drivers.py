@@ -1,6 +1,7 @@
 """The traversal drivers of the PyTorch port (candidate windows, kernel,
 exact refill, scene queries) and its naive oracle, held against the JAX
-package and against the port's own oracle."""
+package and against the port's own oracle.  The "tilebw" and "resident"
+modes are held in test_torch_traversal_modes.py with the helpers here."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,19 +42,25 @@ def _assert_ids(ids, ref_ids, t, ref_t, tris, o, d):
 
 @pytest.mark.parametrize("mode", ["banded", "tilemt"])
 def test_traversal_matches_jax_and_naive(mode):
+    check_traversal(mode)
+
+
+def check_traversal(mode):
+    """Closest hit (any_hit=False: "resident" hands it to the banded
+    driver), then any-hit, which runs each mode's own kernel."""
     jt2, jg, tt2, tg, o, d = conference20k()
     b = 256
     o, d = o[:b], d[:b]
     pk = np.zeros(b, np.int32)
     pi = np.full(b, -1, np.int32)
     t_p, id_p = tbt._TRAVERSALS[mode](tg, tt2, _t(o), _t(d), BIG, _t(pk),
-                                      _t(pi))
+                                      _t(pi), any_hit=False)
     t_n, id_n = tnv.closest_triangles(tt2, _t(o), _t(d),
                                       torch.full((b,), BIG), _t(pk), _t(pi))
     _assert_ids(id_p, id_n, t_p, t_n, tt2, o, d)
     t_j, id_j = jpb._TRAVERSALS[mode](jg, jt2, jnp.asarray(o), jnp.asarray(d),
                                       JC.RAY_LENGTH_MAX, jnp.asarray(pk),
-                                      jnp.asarray(pi))
+                                      jnp.asarray(pi), any_hit=False)
     _assert_ids(id_p, id_j, t_p, t_j, tt2, o, d)
     assert (id_p.numpy() >= 0).sum() > b // 2
 
@@ -64,11 +71,23 @@ def test_traversal_matches_jax_and_naive(mode):
                                     any_hit=True)
     _, id_an = tnv.closest_triangles(tt2, _t(o), _t(d), md, pk2, id_p)
     np.testing.assert_array_equal(id_a.numpy() >= 0, id_an.numpy() >= 0)
+    _, id_aj = jpb._TRAVERSALS[mode](jg, jt2, jnp.asarray(o), jnp.asarray(d),
+                                     jnp.asarray(md.numpy()),
+                                     jnp.asarray(pk2.numpy()),
+                                     jnp.asarray(id_p.numpy()), any_hit=True)
+    np.testing.assert_array_equal(id_a.numpy() >= 0, np.asarray(id_aj) >= 0)
 
 
 def test_scene_queries_match_jax_cornell2():
     """Whole-scene closest hit and occlusion (planes, spheres, area lights,
     triangles through the block traversal) on scene 2."""
+    check_scene_queries("banded")
+
+
+def check_scene_queries(mode):
+    """A closest-hit query in mode "resident" gets any-hit answers in both
+    packages (its default any_hit=True), so its hits are held against JAX
+    only; occlusion in every mode against JAX and the oracle."""
     js, _ = jscenes.load_builtin(C.SCENE_CORNELL2, 1.0)
     ts, _ = tscenes.load_builtin(C.SCENE_CORNELL2, 1.0)
     jsp = jpb.build(js)
@@ -81,9 +100,9 @@ def test_scene_queries_match_jax_cornell2():
     pk = np.zeros(b, np.int32)
     pi = np.full(b, -1, np.int32)
     jh = jpb.intersect_scene_pallas(jsp, *map(jnp.asarray, (o, d, pk, pi)),
-                                    mode="banded")
+                                    mode=mode)
     th = tbt.intersect_scene_blocks(tsp, *map(_t, (o, d, pk, pi)),
-                                    mode="banded")
+                                    mode=mode)
     np.testing.assert_array_equal(th.prim_kind.numpy(),
                                   np.asarray(jh.prim_kind))
     np.testing.assert_array_equal(th.prim_id.numpy(), np.asarray(jh.prim_id))
@@ -93,13 +112,16 @@ def test_scene_queries_match_jax_cornell2():
                                    np.asarray(getattr(jh, f)), rtol=1e-5,
                                    atol=1e-6, err_msg=f)
     # The port's own naive oracle agrees with the traversal.
-    tn = tnv.intersect_scene_naive(tsp, *map(_t, (o, d, pk, pi)))
-    np.testing.assert_array_equal(th.prim_id.numpy(), tn.prim_id.numpy())
+    if mode != "resident":
+        tn = tnv.intersect_scene_naive(tsp, *map(_t, (o, d, pk, pi)))
+        np.testing.assert_array_equal(th.prim_id.numpy(), tn.prim_id.numpy())
     jo = jpb.occluded_pallas(jsp, *map(jnp.asarray, (o, d)), 1.5,
-                             jnp.asarray(pk), jnp.asarray(pi), mode="banded")
+                             jnp.asarray(pk), jnp.asarray(pi), mode=mode)
     to = tbt.occluded_blocks(tsp, _t(o), _t(d), 1.5, _t(pk), _t(pi),
-                             mode="banded")
+                             mode=mode)
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    on = tnv.occluded_naive(tsp, _t(o), _t(d), 1.5, _t(pk), _t(pi))
+    np.testing.assert_array_equal(to.numpy(), on.numpy())
 
 
 @pytest.mark.parametrize("scene_id", [0, 1, 2, 3])
@@ -142,15 +164,14 @@ def _random_tris(n, seed):
         valid=torch.ones(n, dtype=torch.bool))
 
 
-@pytest.mark.parametrize("mode", ["banded", "tilemt"])
-def test_soup_reaches_dense_backstop_and_stays_exact(mode):
-    """120k uniformly random overlapping triangles defeat the SAH windows:
-    the windowed refill stalls and the dense naive backstop
-    (pallas_bvh.py:703-727) must finish the walk exactly."""
+def soup():
+    """(tris, grid, o, d, naive t, naive id, naive occluder id) of 120k
+    random triangles (1,408 blocks, three resident partitions) and 256
+    rays; any-hit queries use max distance 1.0."""
     b = 256
-    md = torch.full((b,), 1.0)
     pk = torch.zeros(b, dtype=torch.int32)
     pi = torch.full((b,), -1, dtype=torch.int32)
+    md = torch.full((b,), 1.0)
     if "soup" not in _SOUP:
         # 60k triangles still resolve in the windowed refill; 120k stall.
         tris, grid = tbt.build_blocks(_random_tris(120000, seed=3))
@@ -163,9 +184,27 @@ def test_soup_reaches_dense_backstop_and_stays_exact(mode):
                                         pk, pi)
         _, occ_n = tnv.closest_triangles(tris, o, d, md, pk, pi)
         _SOUP["soup"] = (tris, grid, o, d, tn, idn, occ_n)
-    tris, grid, o, d, tn, idn, occ_n = _SOUP["soup"]
+    return _SOUP["soup"]
+
+
+@pytest.mark.parametrize("mode", ["banded", "tilemt"])
+def test_soup_reaches_dense_backstop_and_stays_exact(mode):
+    check_soup(mode)
+
+
+def check_soup(mode):
+    """120k uniformly random overlapping triangles defeat the SAH windows:
+    the windowed refill stalls and the dense naive backstop
+    (pallas_bvh.py:703-727) must finish the walk exactly (closest hit
+    with any_hit=False; "resident" hands it to the banded driver)."""
+    b = 256
+    md = torch.full((b,), 1.0)
+    pk = torch.zeros(b, dtype=torch.int32)
+    pi = torch.full((b,), -1, dtype=torch.int32)
+    tris, grid, o, d, tn, idn, occ_n = soup()
     tbt.LOOPS.update(refill=0, dense=0)
-    t, ids = tbt._TRAVERSALS[mode](grid, tris, o, d, BIG, pk, pi)
+    t, ids = tbt._TRAVERSALS[mode](grid, tris, o, d, BIG, pk, pi,
+                                   any_hit=False)
     assert tbt.LOOPS["dense"] > 0
     np.testing.assert_array_equal(ids.numpy(), idn.numpy())
     np.testing.assert_array_equal(t.numpy(), torch.where(idn >= 0, tn,
@@ -173,3 +212,4 @@ def test_soup_reaches_dense_backstop_and_stays_exact(mode):
     _, ids2 = tbt._TRAVERSALS[mode](grid, tris, o, d, md, pk, pi,
                                     any_hit=True)
     np.testing.assert_array_equal(ids2.numpy() >= 0, occ_n.numpy() >= 0)
+
