@@ -10,18 +10,29 @@ nee_share=128, reversed NEE and nee_share_secondary=True, rendered through
 raises and the script exits nonzero):
 
   1. a CUDA device is required; the card's name and power limit;
-  2. the CUDA kernels are built from csrc/ (nvcc, seconds printed);
+  2. the CUDA kernels are built from csrc/ (one nvcc per source, all at
+     once; seconds printed), and for each kernel its registers, shared
+     memory, spills and resident blocks per SM (cudaFuncGetAttributes and
+     cudaOccupancyMaxActiveBlocksPerMultiprocessor, through the library);
   3. each kernel against its plain PyTorch version, bitwise, on the inputs
      the main path gives it (recorded during one 512x512 frame), plus a
-     batch of mirror-bounce rays for the banded kernel's closest-hit mode;
+     batch of mirror-bounce rays for the banded kernel's closest-hit mode,
+     with each batch's mean and max rounds (banded: lockstep rounds) and
+     its tested pairs counted by the exit of the test each takes;
   4. the 512x512 frame through render_frame with the launch counters reset
      just before: finite image, rays > 0, every kernel launched; and the
      tile-MT primary hits against the naive oracle on 2,048 sampled rays;
   5. the 64x64 frame of the 20,000-triangle proxy against the JAX
      package's frame committed as tests/data/torch_port_golden_conference64.npy;
   6. timing with CUDA events: ms/frame and rays/s, each kernel against its
-     plain version; then one frame under torch.profiler: device busy time,
-     idle share and the largest device ops;
+     plain version and its bound (kernels.traversal_bound: the larger of
+     the f32 operations its tested pairs need, each up to the exit it
+     takes as counted by the plain version's walk of the same batch, over
+     the H100's published FP32 rate, and its bytes over the HBM rate; the
+     share at the unfused rate beside it), and one call
+     of each under torch.profiler with its kernels apart; then one frame
+     under torch.profiler: device busy time, idle share and the largest
+     device ops;
   7. the two other traversal modes at full width, with the launch counters
      reset just before: the 262,144 patch-major primaries of phase 4
      through intersect_scene_blocks(mode="tilebw") against mode="tilemt"
@@ -32,7 +43,7 @@ raises and the script exits nonzero):
      agree, and the two pairs may differ only on blockers within one ulp
      of the segment end, which the JAX package's tile windows miss too.  Each new kernel
      against its plain version, bitwise, on the batches it was given, and
-     CUDA-event timings of the passes and kernels.
+     CUDA-event timings of the passes and kernels with their bounds.
 The card's name and power limit and then the kernels' JSON record come
 just before the last line, {"ok": true, "device": {...}}.
 """
@@ -89,14 +100,70 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_frame(render):
-    """Device busy time of one frame under torch.profiler, summed over the
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_bound(K, kind, args, got, walk):
+    """Bound of one kernel call (kernels.traversal_bound) from the call's
+    inputs and outputs and its plain version's statistics of the same walk
+    (`walk`: the tested pairs counted by the exit each takes; for resident
+    also its rounds and blocks read before them): the operations each pair
+    needs up to its exit, the bytes the call reads and writes and the
+    distinct blocks it walks.  Returns (bound, per-program rounds)."""
+    stage_ops = K.BW_STAGE_OPS if kind == "tilebw" else K.MT_STAGE_OPS
+    if kind == "resident":
+        rounds, blocks, exits = walk
+        io = nbytes(args[3], got, args[1], args[2])
+        return K.traversal_bound(exits, stage_ops, io, blocks,
+                                 K.MT_BLOCK_BYTES), rounds.double()
+    cg, ce, rays = args[1], args[2], args[3]
+    io = nbytes(rays, got, cg, ce)
+    if kind == "banded":                 # steps per program and per band
+        rounds = got[2].reshape(-1, K.TILE)[:, 0]
+        walked = got[2].reshape(-1, K.ST)[:, 0]
+    else:                                # rounds per tile
+        rounds = walked = got[:, 2 if kind == "tilemt" else 7].reshape(
+            -1, K.TILE)[:, 0]
+    if kind == "tilemt":
+        io += 4 * cg.shape[0]            # the tile order
+    block = K.BW_BLOCK_BYTES if kind == "tilebw" else K.MT_BLOCK_BYTES
+    return K.traversal_bound(walk, stage_ops, io,
+                             K.visited_blocks(cg, walked),
+                             block), rounds.double()
+
+
+def record(kind, launches, err, k_ms, p_ms, bound, rounds, card):
+    """One kernel's entry of the kernels line."""
+    return dict(KERNELS[kind], launches=launches, max_abs_err=err, ms=k_ms,
+                plain_ms=p_ms, bound_ms=bound["ms"],
+                bound_by="operations" if bound["by"] == "compute"
+                else "bytes", library_ms=None, bound=bound["by"],
+                share=bound["ms"] / k_ms,
+                share_unfused=bound["unfused_ms"] / k_ms,
+                rounds_mean=float(rounds.mean()), card=card)
+
+
+def say_bound(phase, kind, what, n, k_ms, p_ms, bound, rounds, card):
+    say(phase, f"{KERNELS[kind]['name']} on the {what} batch ({n} rays, "
+               f"{bound['tests']} tests, {float(rounds.mean()):.4f} mean "
+               f"rounds per program): kernel {k_ms:.4f} ms, plain PyTorch "
+               f"{p_ms:.4f} ms, bound {bound['ms']:.4f} ms "
+               f"({bound['by']}: {bound['ops']} f32 ops, {bound['bytes']} "
+               f"bytes), share {bound['ms'] / k_ms:.4f}; at the unfused f32 "
+               f"rate {bound['unfused_ms']:.4f} ms, share "
+               f"{bound['unfused_ms'] / k_ms:.4f}; no PyTorch call "
+               f"computes a candidate-list traversal [{card}]")
+
+
+def profile_device(run):
+    """Device busy time of run() under torch.profiler, summed over the
     device's own kernel and copy rows.  Returns (busy ms, {name: ms} of the
     largest rows)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render()
+        run()
         torch.cuda.synchronize()
     rows = {}
     for e in prof.key_averages():
@@ -139,6 +206,18 @@ def main():
     say(2, f"kernels built in {time.perf_counter() - t0:.2f} s (nvcc "
            f"{info['seconds']:.2f} s, new build: {info['built']}): "
            f"{'; '.join(regs)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind in KERNELS:
+        ki = _build.kernel_info(kind)
+        warps = ki["blocks_per_sm"] * ki["threads"] // 32
+        smem = ki["static_smem"] + ki["dynamic_smem"]
+        say(2, f"{KERNELS[kind]['name']}: {ki['regs']} registers, "
+               f"{ki['local_bytes']} spilled bytes per thread, {smem} B of "
+               f"shared memory and {ki['threads']} threads per block -> "
+               f"{ki['blocks_per_sm']} blocks per SM = {warps} of 64 warps, "
+               f"{ki['blocks_per_sm'] * smem} B of shared memory; "
+               f"{ki['blocks_per_sm'] * sms} blocks at once on {sms} SMs "
+               f"[{card}]")
 
     # -- 3 ------------------------------------------------------------------
     t0 = time.perf_counter()
@@ -197,18 +276,25 @@ def main():
 
     plain = {"tilemt": K.tilemt_plain, "banded": K.banded_plain}
     err = {"tilemt": 0.0, "banded": 0.0}
+    outs, exits = {}, {}
     for (kind, what), args in sorted(captured.items()):
         got = wrapped[kind](*args)
-        want = plain[kind](*args)
+        *want, exits[(kind, what)] = plain[kind](*args, stats=True)
         if kind == "banded":
             got, want = torch.stack(got), torch.stack(want)
+        else:
+            want = want[0]
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         err[kind] = max(err[kind], e)
+        outs[(kind, what)] = got
         rounds = got[:, 2] if kind == "tilemt" else got[2]
         say(3, f"{KERNELS[kind]['name']} {what}: rays {args[3].shape[0]} "
-               f"m {args[4]}, rounds mean {float(rounds.mean()):.2f} max "
-               f"{int(rounds.max())}; bitwise equal to plain: "
+               f"m {args[4]}, {'rounds' if kind == 'tilemt' else 'lockstep rounds'}"
+               f" per program mean {float(rounds.mean()):.4f} max "
+               f"{int(rounds.max())}; tested pairs by exit (lane, det, u, "
+               f"v, u + v, t) {exits[(kind, what)].tolist()}; bitwise equal "
+               f"to plain: "
                f"{torch.equal(got, want)} (max abs err {e})")
         if not torch.equal(got, want):
             raise AssertionError(f"{kind} {what}: kernel != plain version")
@@ -281,7 +367,7 @@ def main():
            f"mean of {FRAMES} frames by CUDA events; host clock per frame "
            f"min {min(walls):.3f} median {statistics.median(walls):.3f} ms)"
            f" [{card}]")
-    busy, top = profile_frame(frame)
+    busy, top = profile_device(frame)
     say(6, f"one frame under torch.profiler: device busy {busy:.3f} ms of "
            f"{frame_ms:.3f} ms, idle share {1.0 - busy / frame_ms:.3f}; "
            f"largest device rows (ms): "
@@ -294,11 +380,18 @@ def main():
         args = cases[what]
         k_ms = cuda_ms(lambda: wrapped[kind](*args), 10)
         p_ms = cuda_ms(lambda: plain[kind](*args), 3)
-        say(6, f"{KERNELS[kind]['name']} on the frame's {what} batch "
-               f"({args[3].shape[0]} rays): kernel {k_ms:.4f} ms, plain "
-               f"PyTorch {p_ms:.4f} ms [{card}]")
-        records.append(dict(KERNELS[kind], launches=launches[kind],
-                            max_abs_err=err[kind], ms=k_ms, plain_ms=p_ms))
+        bound, rounds = kernel_bound(K, kind, args, outs[(kind, what)],
+                                     exits[(kind, what)])
+        say_bound(6, kind, f"frame's {what}", args[3].shape[0], k_ms, p_ms,
+                  bound, rounds, card)
+        # The launch's own kernels (tile-MT: the tile order's two passes,
+        # then the walk), apart.
+        _, rows = profile_device(lambda: wrapped[kind](*args))
+        say(6, f"{KERNELS[kind]['name']}, one call under torch.profiler: "
+               + "; ".join(f"{k.split('::')[-1].split('(')[0]} {v:.4f} ms"
+                           for k, v in rows.items()) + f" [{card}]")
+        records.append(record(kind, launches[kind], err[kind], k_ms, p_ms,
+                              bound, rounds, card))
 
     # -- 7 ------------------------------------------------------------------
     records += traversal_modes(scene, cfg, key, o, d, pk, pi, b, card)
@@ -432,22 +525,31 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
         raise AssertionError(f"phase 7 missed a kernel: {launches}")
 
     err = {"tilebw": 0.0, "resident": 0.0}
+    outs, walks = {}, {}
     for (kind, what), args in sorted(captured.items()):
         got = wrapped[kind](*args)
-        want = plain[kind](*args)
         if kind == "resident":
-            got, want = torch.stack(got), torch.stack(want)
+            t, slot, rounds, blocks, pairs = plain[kind](*args, stats=True)
+            walks[(kind, what)] = (rounds, blocks, pairs)
+            got, want = torch.stack(got), torch.stack((t, slot))
             stats = (f"partitions {args[5]}, occluded in some partition "
-                     f"{int((got[0] < args[3][:, 6]).any(0).sum())}")
+                     f"{int((got[0] < args[3][:, 6]).any(0).sum())}, rounds "
+                     f"per (program, partition) mean "
+                     f"{float(rounds.double().mean()):.4f} max "
+                     f"{int(rounds.max())}")
         else:
+            want, pairs = plain[kind](*args, stats=True)
+            walks[(kind, what)] = pairs
             stats = (f"rounds mean {float(got[:, 7].mean()):.2f} max "
                      f"{int(got[:, 7].max())}, flagged amb "
                      f"{int(got[:, 8].sum())}")
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         err[kind] = max(err[kind], e)
+        outs[(kind, what)] = got
         say(7, f"{KERNELS[kind]['name']} {what}: rays {args[3].shape[0]} "
-               f"m {args[4]}, {stats}; bitwise equal to plain: "
+               f"m {args[4]}, {stats}, tested pairs by exit "
+               f"{pairs.tolist()}; bitwise equal to plain: "
                f"{torch.equal(got, want)} (max abs err {e})")
         if not torch.equal(got, want):
             raise AssertionError(f"{kind} {what}: kernel != plain version")
@@ -465,11 +567,12 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
         args = captured[(kind, what)]
         k_ms = cuda_ms(lambda: wrapped[kind](*args), 10)
         p_ms = cuda_ms(lambda: plain[kind](*args), 3)
-        say(7, f"{KERNELS[kind]['name']} on the {what} batch "
-               f"({args[3].shape[0]} rays): kernel {k_ms:.4f} ms, plain "
-               f"PyTorch {p_ms:.4f} ms [{card}]")
-        records.append(dict(KERNELS[kind], launches=launches[kind],
-                            max_abs_err=err[kind], ms=k_ms, plain_ms=p_ms))
+        bound, rounds = kernel_bound(K, kind, args, outs[(kind, what)],
+                                     walks[(kind, what)])
+        say_bound(7, kind, what, args[3].shape[0], k_ms, p_ms, bound, rounds,
+                  card)
+        records.append(record(kind, launches[kind], err[kind], k_ms, p_ms,
+                              bound, rounds, card))
     args = captured[("tilebw", "shadow (any-hit)")]
     say(7, f"traverse_tilebw on the shadow (any-hit) batch "
            f"({args[3].shape[0]} rays): kernel "

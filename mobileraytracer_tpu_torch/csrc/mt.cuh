@@ -1,7 +1,7 @@
 // Shared pieces of the Moller-Trumbore traversal kernels
 // (traverse_banded.cu, traverse_tilemt.cu, traverse_resident.cu): the block
-// layout and one ray's Moller-Trumbore scan over one 128-triangle block,
-// held in shared memory (or, for the resident kernel, read in place).
+// layout, the asynchronous block copy, and the Moller-Trumbore round of one
+// ray against one 128-triangle block.
 //
 // The arithmetic is the JAX package's, operation for operation
 // (mobileraytracer_tpu/ops/pallas_bvh.py:524-548 and :1368-1391, which
@@ -11,6 +11,27 @@
 // triangle edge, or a tie, can flip, so the kernel would no longer equal
 // its plain PyTorch version (ops/kernels.py) bit for bit.  1.0f / det stays
 // the IEEE division (-prec-div=true, nvcc's default).
+//
+// What bounds a test on the H100: 46 unfused f32 operations (one of them
+// the IEEE division, a reciprocal and its correction) plus the comparisons,
+// against 11 values of the triangle read from shared memory.  Unfused, a
+// lane does one operation per clock, so the kernels cannot pass half the
+// published FP32 rate, which counts an FMA as two.  Two things here cut
+// what each test issues:
+//   - mt_scan reads the rows as float4, four neighbouring triangles per
+//     load, so 11 shared-memory loads serve four tests instead of one;
+//   - mt_test stops a lane as soon as the values the plain version computes
+//     reject it: an invalid lane or the ray's previous slot, |det| < eps,
+//     u outside [0, 1], then v < 0 or u + v > 1.  Nothing is reformulated:
+//     every value that is computed is computed as the plain version does.
+//     The rays of a warp are coherent (4x4 patches; one light point per
+//     16-ray band), so most of these exits are taken by the whole warp.
+// The round's minimum t and lowest slot at it do not depend on the order
+// of the tests, so a round may be split between threads (merge_min) and
+// taken four triangles at a time and stay exact.  The early exits leave
+// each test a chain of dependent operations with branches between them, so
+// a ray's round is latency-bound: the kernels split a ray's 128 triangles
+// between threads to shorten it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,6 +43,9 @@ constexpr int kRows = 16;         // rows per block in tb
 constexpr int kRowsUsed = 11;     // rows 0-8 a/ab/ac, 9 valid, 10 slot
 constexpr float kBig = 1.0e30f;   // RAY_LENGTH_MAX
 constexpr float kEps = 1.0e-6f;   // EPSILON
+// Rows 0-10 of a block: the first 5,632 bytes of its 8,192-byte row of tb,
+// contiguous and 16-byte aligned, copied as 352 16-byte pieces.
+constexpr int kChunks = kRowsUsed * kLanes / 4;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, t_init, prev;
@@ -29,24 +53,107 @@ struct Ray {
 
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
                                         size_t i) {
-  const float* p = rays + i * 8;
-  return Ray{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7]};
+  const float4* p = reinterpret_cast<const float4*>(rays + i * 8);
+  const float4 a = p[0], b = p[1];
+  return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
-// Copies rows 0-10 of block `src` into `dst` using `n` threads with
-// index `k` (0 <= k < n).
-__device__ __forceinline__ void copy_block(float (*dst)[kLanes],
-                                          const float* __restrict__ src,
-                                          int k, int n) {
-  for (int i = k; i < kRowsUsed * kLanes; i += n) {
-    dst[i / kLanes][i % kLanes] = src[i];
+// Starts the copy of rows 0-10 of block `src` into `dst` with cp.async
+// (16 bytes each, through L2 only), thread `k` of `n` taking every n-th
+// piece, and commits them as one group.  The caller waits with
+// cp_async_wait and then makes the block visible with a barrier.
+__device__ __forceinline__ void copy_block_async(float (*dst)[kLanes],
+                                                 const float* __restrict__ src,
+                                                 int k, int n) {
+  float4* d = reinterpret_cast<float4*>(&dst[0][0]);
+  const float4* s = reinterpret_cast<const float4*>(src);
+  for (int i = k; i < kChunks; i += n) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(d + i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+                 "l"(s + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `n` of this thread's copy groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// The round's running minimum: t below tmin wins, t equal to it keeps the
+// lower slot.
+__device__ __forceinline__ void merge_min(float& tmin, float& smin, float t,
+                                          float slot) {
+  if (t < tmin) {
+    tmin = t;
+    smin = slot;
+  } else if (t == tmin) {
+    smin = fminf(smin, slot);
   }
 }
 
-// One round for one ray: tests the block's 128 triangles and updates
-// (t_best, slot_best).  The round's candidate t is kept only where it
-// beats t_best; tmin is the round's minimum and smin the lowest slot at
-// tmin; the round wins only if strictly closer than t_best.
+// One ray against one triangle: merges t into (tmin, smin) if the plain
+// version accepts the pair with t < t_best, and returns as soon as a value
+// it computes rejects the pair.
+__device__ __forceinline__ void mt_test(const Ray& r, float pax, float pay,
+                                        float paz, float abx, float aby,
+                                        float abz, float acx, float acy,
+                                        float acz, float valid, float slot,
+                                        float t_best, float& tmin,
+                                        float& smin) {
+  if (!(valid > 0.5f) || slot == r.prev) return;
+  const float px = r.dy * acz - r.dz * acy;
+  const float py = r.dz * acx - r.dx * acz;
+  const float pz = r.dx * acy - r.dy * acx;
+  const float det = abx * px + aby * py + abz * pz;
+  if (!(fabsf(det) >= kEps)) return;
+  const float inv = 1.0f / det;
+  const float tvx = r.ox - pax, tvy = r.oy - pay, tvz = r.oz - paz;
+  const float u = inv * (tvx * px + tvy * py + tvz * pz);
+  if (!(u >= 0.0f && u <= 1.0f)) return;
+  const float qx = tvy * abz - tvz * aby;
+  const float qy = tvz * abx - tvx * abz;
+  const float qz = tvx * aby - tvy * abx;
+  const float v = inv * (r.dx * qx + r.dy * qy + r.dz * qz);
+  if (!(v >= 0.0f && u + v <= 1.0f)) return;
+  const float t = inv * (acx * qx + acy * qy + acz * qz);
+  if (t >= kEps && t < t_best) merge_min(tmin, smin, t, slot);
+}
+
+// Component c (0-3) of v.
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Triangles [j0, j0 + n) of `blk` (n a multiple of 4) against ray r,
+// four triangles per float4 read of each row; (tmin, smin) start at
+// (kBig, kBig).
+__device__ __forceinline__ void mt_scan(const float (*blk)[kLanes], int j0,
+                                        int n, const Ray& r, float t_best,
+                                        float& tmin, float& smin) {
+  for (int j = j0; j < j0 + n; j += 4) {
+    float4 w[kRowsUsed];
+#pragma unroll
+    for (int k = 0; k < kRowsUsed; ++k) {
+      w[k] = *reinterpret_cast<const float4*>(&blk[k][j]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      mt_test(r, comp(w[0], c), comp(w[1], c), comp(w[2], c), comp(w[3], c),
+              comp(w[4], c), comp(w[5], c), comp(w[6], c), comp(w[7], c),
+              comp(w[8], c), comp(w[9], c), comp(w[10], c), t_best, tmin,
+              smin);
+    }
+  }
+}
+
+// One round for one ray, every test run to its end: tests the block's 128
+// triangles and updates (t_best, slot_best).  The round's candidate t is
+// kept only where it beats t_best; tmin is the round's minimum and smin the
+// lowest slot at tmin; the round wins only if strictly closer than t_best.
+// The resident kernel runs it on blocks read in place.
 __device__ __forceinline__ void mt_round(const float (*blk)[kLanes],
                                          const Ray& r, float& t_best,
                                          float& slot_best) {
@@ -73,17 +180,51 @@ __device__ __forceinline__ void mt_round(const float (*blk)[kLanes],
                     (v >= 0.0f) && (u + v <= 1.0f) && (t >= kEps) &&
                     (valid > 0.5f) && (slot != r.prev);
     t = (ok && t < t_best) ? t : kBig;
-    if (t < tmin) {
-      tmin = t;
-      smin = slot;
-    } else if (t == tmin) {
-      smin = fminf(smin, slot);
-    }
+    merge_min(tmin, smin, t, slot);
   }
   if (tmin < t_best) {
     t_best = tmin;
     slot_best = smin;
   }
+}
+
+// Ends a round that mt_scan took (merged over every triangle of the
+// block): the accepted minimum below kBig wins, as in mt_round, since it
+// beats t_best.  With none below kBig, mt_round's minimum is kBig with the
+// lowest slot of every lane at kBig, which matters only when kBig beats
+// t_best; that round is then taken again in full.
+__device__ __forceinline__ void mt_finish(const float (*blk)[kLanes],
+                                          const Ray& r, float tmin,
+                                          float smin, float& t_best,
+                                          float& slot_best) {
+  if (tmin < kBig) {
+    t_best = tmin;
+    slot_best = smin;
+  } else if (kBig < t_best) {
+    mt_round(blk, r, t_best, slot_best);
+  }
+}
+
+// Fills info with the launch facts of `fn` at `threads` threads and `smem`
+// bytes of dynamic shared memory: registers per thread, static shared
+// bytes, dynamic shared bytes, local (spilled) bytes per thread, threads
+// per block and resident blocks per SM.  Returns a cudaError_t.
+template <typename F>
+int kernel_info(F fn, int threads, size_t smem, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)smem;
+  info[3] = (int)a.localSizeBytes;
+  info[4] = threads;
+  info[5] = blocks;
+  return 0;
 }
 
 }  // namespace mrt

@@ -108,3 +108,9 @@ extern "C" int mrt_traverse_resident(const float* tb, const int* starts,
   }
   return (int)cudaGetLastError();
 }
+
+// Registers, shared memory and resident blocks per SM of the kernel (see
+// mrt::kernel_info).
+extern "C" int mrt_resident_info(int* info) {
+  return kernel_info(resident_kernel, kProg, 0, info);
+}

@@ -212,6 +212,12 @@ tilebw_kernel(const float* __restrict__ tw, const int* __restrict__ gid,
   for (int k = 9; k < 16; ++k) o[k] = 0.0f;
 }
 
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(tilebw_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kSmem);
+}
+
 }  // namespace
 
 // Launches one block per 128-ray tile on `stream`.  tw is (NB, 8, 384),
@@ -235,12 +241,19 @@ extern "C" int mrt_traverse_tilebw(const float* tw, const int* gid,
   c.one_p_trel = consts[8];
   c.one_m_trel = consts[9];
   c.tmg = consts[10];
-  cudaError_t err = cudaFuncSetAttribute(
-      tilebw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  cudaError_t err = prepare();
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
     tilebw_kernel<<<n_tiles, kTile, kSmem, stream>>>(tw, gid, entry, rays,
                                                      out, m, any_hit, c);
   }
   return (int)cudaGetLastError();
+}
+
+// Registers, shared memory and resident blocks per SM of the kernel (see
+// mrt::kernel_info).
+extern "C" int mrt_tilebw_info(int* info) {
+  const cudaError_t err = prepare();
+  if (err != cudaSuccess) return (int)err;
+  return kernel_info(tilebw_kernel, kTile, kSmem, info);
 }

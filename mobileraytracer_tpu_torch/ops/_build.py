@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -27,17 +28,19 @@ LIB_NAME = "libmrt_traverse.so"
 # plain versions (see csrc/mt.cuh); -prec-div stays at its IEEE default
 # and --use_fast_math is never passed.
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# Launcher argument types: five device pointers, the ints, then any host
-# pointer and the stream.
+KERNELS = ("banded", "tilemt", "tilebw", "resident")
+# Launcher argument types: the device pointers, the ints, then any host
+# pointer and the stream; each kernel's mrt_<name>_info takes an int[6].
 _FUNCS = {
     "mrt_traverse_banded": [_P] * 5 + [_I] * 3 + [_P],
-    "mrt_traverse_tilemt": [_P] * 5 + [_I] * 3 + [_P],
+    "mrt_traverse_tilemt": [_P] * 6 + [_I] * 3 + [_P],
     "mrt_traverse_tilebw": [_P] * 5 + [_I] * 3
                            + [ctypes.POINTER(ctypes.c_float), _P],
     "mrt_traverse_resident": [_P] * 5 + [_I] * 3 + [_P],
+    **{f"mrt_{k}_info": [ctypes.POINTER(_I)] for k in KERNELS},
 }
 _lib = None
 BUILD_INFO = {"seconds": None, "built": False, "path": None, "log": ""}
@@ -65,8 +68,18 @@ def lib_path() -> Path:
     return _BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> Path:
-    """Compiles the library if it is missing; returns its path."""
+    """Compiles the library if it is missing; returns its path.  Each
+    source compiles in its own nvcc process, all at once, then one more
+    links them."""
     path = lib_path()
     if path.exists():
         BUILD_INFO.update(seconds=0.0, built=False, path=str(path))
@@ -74,22 +87,19 @@ def build() -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     t0 = time.perf_counter()
-    with tempfile.NamedTemporaryFile(dir=path.parent, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = tmp.name
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *FLAGS, "-I", str(_CSRC), "-o", tmp_path,
-             *map(str, cu)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp_path, path)   # atomic: concurrent builders agree
-    finally:
-        if os.path.exists(tmp_path):
-            os.unlink(tmp_path)
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        nvcc = _nvcc()
+        with ThreadPoolExecutor(len(cu)) as pool:
+            logs = list(pool.map(
+                lambda src_obj: _run([nvcc, *FLAGS, "-c", "-I", str(_CSRC),
+                                      "-o", src_obj[1], str(src_obj[0])]),
+                zip(cu, objs)))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        logs.append(_run([nvcc, *FLAGS, "-shared", "-o", tmp_lib, *objs]))
+        os.replace(tmp_lib, path)   # atomic: concurrent builds agree
     BUILD_INFO.update(seconds=time.perf_counter() - t0, built=True,
-                      path=str(path), log=proc.stdout + proc.stderr)
+                      path=str(path), log="".join(logs))
     return path
 
 
@@ -112,3 +122,20 @@ def error_string(err: int) -> str:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return f"CUDA error {err}: {fn(err).decode()}"
+
+
+INFO_KEYS = ("regs", "static_smem", "dynamic_smem", "local_bytes",
+             "threads", "blocks_per_sm")
+
+
+def kernel_info(name: str) -> dict:
+    """Launch facts of kernel `name` (one of KERNELS) on the current
+    device, from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers per thread,
+    static and dynamic shared bytes, spilled bytes per thread, threads per
+    block and resident blocks per SM."""
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    err = getattr(load(), f"mrt_{name}_info")(info)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel info: {error_string(err)}")
+    return dict(zip(INFO_KEYS, info))

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..types import Hit, Scene, TensorData, Triangles
+from ..types import Hit, Scene, TensorData, Triangles, entry_device
 from . import intersect as nv
 from . import kernels
 from .bvh import build_triangle_bvh
@@ -212,8 +212,9 @@ def build_blocks(tris: Triangles, blocks_per_super: int = DEFAULT_BPS,
 
 def build(scene: Scene, device=None, **kwargs) -> Scene:
     """Attaches the block grid to the scene (reordering its triangles) and
-    moves the scene to `device` (default: where the scene is)."""
-    device = scene.device if device is None else device
+    moves the scene to `device`: the CUDA card unless another is named
+    (types.entry_device; without a card it raises)."""
+    device = entry_device(device)
     tris2, grid = build_blocks(scene.triangles.to("cpu"), **kwargs)
     return scene.replace(triangles=tris2, bvh=grid).to(device)
 
@@ -347,10 +348,12 @@ def _candidates(grid: BlockGrid, o, d, cap=None, floor=None, st=ST,
 # ---------------------------------------------------------------------------
 
 def _banded_balanced(grid, cg, ce, rays_in, m, any_hit):
-    """Runs the banded kernel with subtiles sorted by candidate count, so
-    the 8 lockstep bands of a program have near-equal walks; results go
-    back to the caller's subtile order.  Returns (t, slot, steps), each
-    (nt * ST,)."""
+    """Runs the banded kernel with subtiles sorted by candidate count,
+    fewest first, so the 8 lockstep bands of a program have near-equal
+    walks; results go back to the caller's subtile order.  The CUDA kernel
+    starts the programs from the last, so the longest walks run first
+    (only its speed depends on that order).  Returns (t, slot, steps),
+    each (nt * ST,)."""
     counts = (ce < _BIG * 0.5).sum(1)
     order = torch.argsort(counts, stable=True)
     lanes_p = (order[:, None] * ST

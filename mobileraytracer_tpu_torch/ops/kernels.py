@@ -61,14 +61,16 @@ def reset_launches() -> None:
 # iteration per round, over every program that is still walking.
 # ---------------------------------------------------------------------------
 
-def _mt_round(blk, ox, oy, oz, dx, dy, dz, prev, t_best, slot_best):
-    """One round: rays (..., R, 1) against blocks (..., 16, LANES) -> new
-    (t_best, slot_best).  The arithmetic order is the kernels'."""
+def _mt_values(blk, ox, oy, oz, dx, dy, dz, prev):
+    """Rays (..., R, 1) against blocks (..., 16, LANES): the pairs' det, u,
+    v and t, each (..., R, LANES), whether the lane counts (valid and not
+    the ray's previous slot), and the lanes' slots.  The arithmetic order
+    is the kernels'."""
     pax, pay, paz = blk[..., 0:1, :], blk[..., 1:2, :], blk[..., 2:3, :]
     abx, aby, abz = blk[..., 3:4, :], blk[..., 4:5, :], blk[..., 5:6, :]
     acx, acy, acz = blk[..., 6:7, :], blk[..., 7:8, :], blk[..., 8:9, :]
-    tvalid = blk[..., 9:10, :] > 0.5
     slot = blk[..., 10:11, :]
+    live = (blk[..., 9:10, :] > 0.5) & (slot != prev)
     px = dy * acz - dz * acy
     py = dz * acx - dx * acz
     pz = dx * acy - dy * acx
@@ -81,9 +83,39 @@ def _mt_round(blk, ox, oy, oz, dx, dy, dz, prev, t_best, slot_best):
     qz = tvx * aby - tvy * abx
     v = inv * (dx * qx + dy * qy + dz * qz)
     t = inv * (acx * qx + acy * qy + acz * qz)
+    return det, u, v, t, live, slot
+
+
+def _exits(rejects):
+    """Per pair, the index of the first of the boolean masks `rejects`
+    that holds (len(rejects) where none does), counted: a LongTensor of
+    len(rejects) + 1 pair counts."""
+    stage = torch.full(rejects[0].shape, len(rejects), dtype=torch.uint8,
+                       device=rejects[0].device)
+    for i in reversed(range(len(rejects))):
+        stage = torch.where(rejects[i], i, stage)
+    return torch.bincount(stage.reshape(-1).long(),
+                          minlength=len(rejects) + 1).cpu()
+
+
+def _mt_exits(det, u, v, live):
+    """Pair counts per exit of mt_test (csrc/mt.cuh), in MT_STAGE_OPS
+    order."""
+    return _exits((~live, ~(torch.abs(det) >= C.EPSILON),
+                   ~((u >= 0.0) & (u <= 1.0)), ~(v >= 0.0),
+                   ~(u + v <= 1.0)))
+
+
+def _mt_round(blk, ox, oy, oz, dx, dy, dz, prev, t_best, slot_best,
+              exits=None):
+    """One round: rays (..., R, 1) against blocks (..., 16, LANES) -> new
+    (t_best, slot_best).  With `exits` (a LongTensor of MT_STAGE_OPS's
+    length), adds the round's pair counts per exit of mt_test to it."""
+    det, u, v, t, live, slot = _mt_values(blk, ox, oy, oz, dx, dy, dz, prev)
+    if exits is not None:
+        exits += _mt_exits(det, u, v, live)
     ok = ((torch.abs(det) >= C.EPSILON) & (u >= 0.0) & (u <= 1.0)
-          & (v >= 0.0) & (u + v <= 1.0) & (t >= C.EPSILON)
-          & tvalid & (slot != prev))
+          & (v >= 0.0) & (u + v <= 1.0) & (t >= C.EPSILON) & live)
     t = torch.where(ok & (t < t_best), t, _BIG)
     tmin = t.amin(-1, keepdim=True)
     smin = torch.where(t <= tmin, slot.expand_as(t), _BIG).amin(-1,
@@ -97,14 +129,16 @@ def _ray_parts(r):
     return [r[..., c:c + 1] for c in range(8)]
 
 
-def banded_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
+def banded_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool,
+                 stats: bool = False):
     """Banded lockstep walk.  One program = GROUP bands of ST rays, each
     band with its own m candidates (rows of cand_gid/cand_entry, (Bp/ST,
     m)).  Round r tests each band's r-th block; the program stops when
     every band is dead: its next entry is >= its worst t_best, or (any-hit)
     all its rays are occluded.  Dead bands keep visiting until then.
     Returns (t, slot, steps), each (Bp,) f32; steps is the program's round
-    count."""
+    count.  With `stats` also the walk's pair counts per exit of the
+    Moller-Trumbore test (MT_STAGE_OPS order)."""
     bp = rays.shape[0]
     ng = bp // TILE
     gid = cand_gid.reshape(ng, GROUP, m).long()
@@ -114,6 +148,8 @@ def banded_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     t_best = t_init.clone()
     slot_best = torch.full_like(t_init, -1.0)
     steps = torch.zeros(ng, dtype=torch.float32, device=rays.device)
+    exits = torch.zeros(len(MT_STAGE_OPS), dtype=torch.long) if stats \
+        else None
 
     def done(r, idx):
         nxt = min(r + 1, m - 1)
@@ -135,23 +171,27 @@ def banded_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
             break
         tn, sn = _mt_round(tb[gid[idx, :, r]], ox[idx], oy[idx], oz[idx],
                            dx[idx], dy[idx], dz[idx], prev[idx],
-                           t_best[idx], slot_best[idx])
+                           t_best[idx], slot_best[idx], exits)
         t_best[idx] = tn
         slot_best[idx] = sn
         steps[idx] = float(r + 1)
         alive[idx] = ~done(r, idx)
         r += 1
     steps_r = steps[:, None].expand(ng, TILE).reshape(-1)
-    return t_best.reshape(-1), slot_best.reshape(-1), steps_r.contiguous()
+    out = t_best.reshape(-1), slot_best.reshape(-1), steps_r.contiguous()
+    return out + (exits,) if stats else out
 
 
-def tilemt_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
+def tilemt_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool,
+                 stats: bool = False):
     """Tile-MT walk.  One program = TILE rays on one shared candidate list
     (rows of cand_gid/cand_entry, (Bp/TILE, m)); round r tests all rays
     against block r.  After each round the program stops when r+1 == m or
     entry[r+1] >= the tile's worst t (closest: max t_best; any-hit: max
     t_init over rays not yet occluded, and stop once all are occluded).
-    Returns (Bp, 4) f32 rows [t, slot, rounds, 0]."""
+    Returns (Bp, 4) f32 rows [t, slot, rounds, 0]; with `stats` also the
+    walk's pair counts per exit of the Moller-Trumbore test (MT_STAGE_OPS
+    order)."""
     bp = rays.shape[0]
     nt = bp // TILE
     gid = cand_gid.reshape(nt, m).long()
@@ -162,6 +202,8 @@ def tilemt_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     slot_best = torch.full_like(t_init, -1.0)
     rounds = torch.zeros(nt, dtype=torch.float32, device=rays.device)
     alive = torch.ones(nt, dtype=torch.bool, device=rays.device)
+    exits = torch.zeros(len(MT_STAGE_OPS), dtype=torch.long) if stats \
+        else None
     r = 0
     while True:
         idx = alive.nonzero()[:, 0]
@@ -169,7 +211,7 @@ def tilemt_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
             break
         tn, sn = _mt_round(tb[gid[idx, r]], ox[idx], oy[idx], oz[idx],
                            dx[idx], dy[idx], dz[idx], prev[idx],
-                           t_best[idx], slot_best[idx])
+                           t_best[idx], slot_best[idx], exits)
         t_best[idx] = tn
         slot_best[idx] = sn
         rounds[idx] = float(r + 1)
@@ -188,7 +230,7 @@ def tilemt_plain(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     out[:, 0] = t_best.reshape(-1)
     out[:, 1] = slot_best.reshape(-1)
     out[:, 2] = rounds[:, None].expand(nt, TILE).reshape(-1)
-    return out
+    return (out, exits) if stats else out
 
 
 def _f32(x: float) -> float:
@@ -215,12 +257,14 @@ def _argmin_slot(x, slot, m):
     return torch.where(x <= m, slot, _BIG2).amin(-1, keepdim=True)
 
 
-def _bw_round(w, ox, oy, oz, dx, dy, dz, prev, t_hi, any_hit, k):
+def _bw_round(w, ox, oy, oz, dx, dy, dz, prev, t_hi, any_hit, k,
+              exits=None):
     """One round of the tile kernel: rays (n, TILE, 1) against Baldwin-Weber
     blocks w (n, 8, 3*LANES); t_hi holds each ray's loose and strict upper
     t limits.  Returns the round's (m1, sl1, m2, sl2, m3, mo, so, amb),
     each (n, TILE, 1).  Sums run x, y, z, then the offset, each operation
-    rounded."""
+    rounded.  With `exits`, adds the round's pair counts per exit of
+    BW_STAGE_OPS to it."""
     half_eps, eps15, neg_mu, mu, one_p_mu, one_m_mu, eps_m_tmg, eps_p_tmg = \
         k[:8]
     hi_loose, hi_strict = t_hi
@@ -252,6 +296,14 @@ def _bw_round(w, ox, oy, oz, dx, dy, dz, prev, t_hi, any_hit, k):
     amb = (base & (det_s >= half_eps) & ~well_cond).any(-1, keepdim=True)
     strict = (base & (det_s >= eps15) & well_cond & (u >= mu) & (v >= mu)
               & (u + v <= one_m_mu) & (t >= eps_p_tmg) & (t <= hi_strict))
+    if exits is not None:
+        # Past each exit neither acceptance (nor the ambiguity flag) can
+        # hold: eps15 > half_eps, mu > -mu, and the strict t range is
+        # checked apart from the loose one.
+        exits += _exits((~base, ~((det_s >= half_eps) & well_cond),
+                         ~((t >= eps_m_tmg) & (t <= hi_loose))
+                         & ~((t >= eps_p_tmg) & (t <= hi_strict)),
+                         ~(u >= neg_mu), ~(v >= neg_mu)))
     tstr = torch.where(strict, t, _BIG2)
     mo = tstr.amin(-1, keepdim=True)
     so = _argmin_slot(tstr, slot_b, mo)
@@ -277,7 +329,7 @@ _TILE_CHUNK = 512    # tiles per pass of tile_plain (bounds its temporaries)
 
 
 def tile_plain(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
-               tmg: float):
+               tmg: float, stats: bool = False):
     """Baldwin-Weber tile walk.  One program = TILE rays on one shared list
     of m candidate blocks (rows of cand_gid/cand_entry, (Bp/TILE, m)), read
     from tw (NB, 8, 3*LANES).  Per round, every (ray, lane) pair gets the
@@ -290,19 +342,22 @@ def tile_plain(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
     tile's largest bound: closest hit min(ts_m (1 + TREL) + tmg, cap);
     any-hit cap, or -2 BIG once the ray has a strict hit.
     Returns (Bp, 16) f32 rows [t1, s1, t2, s2, t3, ts_m, ts_s, rounds,
-    amb, 0 x 7].  Tiles are independent and run in chunks."""
+    amb, 0 x 7]; with `stats` also the walk's pair counts per exit of
+    BW_STAGE_OPS.  Tiles are independent and run in chunks."""
     bp = rays.shape[0]
     nt = bp // TILE
     out = torch.zeros((bp, 16), dtype=torch.float32, device=rays.device)
+    exits = torch.zeros(len(BW_STAGE_OPS), dtype=torch.long) if stats \
+        else None
     for c0 in range(0, nt, _TILE_CHUNK):
         c1 = min(nt, c0 + _TILE_CHUNK)
         out[c0 * TILE:c1 * TILE] = _tile_chunk(
             tw, cand_gid[c0:c1], cand_entry[c0:c1],
-            rays[c0 * TILE:c1 * TILE], m, any_hit, tmg)
-    return out
+            rays[c0 * TILE:c1 * TILE], m, any_hit, tmg, exits)
+    return (out, exits) if stats else out
 
 
-def _tile_chunk(tw, cand_gid, cand_entry, rays, m, any_hit, tmg):
+def _tile_chunk(tw, cand_gid, cand_entry, rays, m, any_hit, tmg, exits):
     k = bw_consts(tmg)
     one_p_trel, one_m_trel, tmg32 = k[8], k[9], k[10]
     bp = rays.shape[0]
@@ -326,7 +381,7 @@ def _tile_chunk(tw, cand_gid, cand_entry, rays, m, any_hit, tmg):
             break
         m1, sl1, m2, sl2, m3, mo, so, amb_r = _bw_round(
             tw[gid[i, r]], ox[i], oy[i], oz[i], dx[i], dy[i], dz[i],
-            prev[i], (hi_loose[i], hi_strict[i]), any_hit, k)
+            prev[i], (hi_loose[i], hi_strict[i]), any_hit, k, exits)
         amb[i] = torch.maximum(amb[i], amb_r.to(torch.float32))
         tsm, tss = ts_m[i], ts_s[i]
         better_o = mo < tsm
@@ -370,7 +425,8 @@ def _tile_chunk(tw, cand_gid, cand_entry, rays, m, any_hit, tmg):
 _RES_CHUNK = 2048    # (partition, program) pairs per round of resident_plain
 
 
-def resident_plain(tb, starts, glist, rays, m: int, n_parts: int):
+def resident_plain(tb, starts, glist, rays, m: int, n_parts: int,
+                   stats: bool = False):
     """Resident-table any-hit walk.  tb is the block table zero-padded to
     n_parts * NBP blocks; the grid is (partition p, program).  One program =
     GROUP bands of ST rays; band g's gid-sorted list (a row of glist,
@@ -381,7 +437,10 @@ def resident_plain(tb, starts, glist, rays, m: int, n_parts: int):
     the program's GROUP*m entries read its last one).  A band is alive while
     s0 + r < s1 and one of its rays is unoccluded; the program runs while
     any band is alive, and dead bands keep testing their clamped block.
-    Returns (t, slot), each (n_parts, Bp) f32."""
+    Returns (t, slot), each (n_parts, Bp) f32; with `stats` also the
+    rounds of each (partition, program), (n_parts, Bp/TILE) int64, the
+    number of distinct blocks of tb the walk read, and the walk's pair
+    counts per exit of the Moller-Trumbore test (MT_STAGE_OPS order)."""
     bp = rays.shape[0]
     ng = bp // TILE
     dev = rays.device
@@ -404,6 +463,10 @@ def resident_plain(tb, starts, glist, rays, m: int, n_parts: int):
 
     alive = live(0, parts.reshape(-1), progs.reshape(-1),
                  t_best.reshape(-1, GROUP, ST, 1)).reshape(n_parts, ng)
+    rounds = torch.zeros((n_parts, ng), dtype=torch.int64, device=dev)
+    read = torch.zeros(tb.shape[0], dtype=torch.bool, device=dev)
+    exits = torch.zeros(len(MT_STAGE_OPS), dtype=torch.long) if stats \
+        else None
     r = 0
     while True:
         pairs = alive.nonzero()
@@ -416,16 +479,88 @@ def resident_plain(tb, starts, glist, rays, m: int, n_parts: int):
             pos = torch.clamp(band + idx, max=GROUP * m - 1)
             lid = torch.clamp(gl[g[:, None], pos] - p[:, None] * NBP, 0,
                               NBP - 1)
-            blk = tb[p[:, None] * NBP + lid]              # (k, G, 16, LANES)
+            row = p[:, None] * NBP + lid
+            read[row] = True
+            blk = tb[row]                                 # (k, G, 16, LANES)
             tn, sn = _mt_round(blk, ox[g], oy[g], oz[g], dx[g], dy[g],
                                dz[g], prev[g], t_best[p, g],
-                               slot_best[p, g])
+                               slot_best[p, g], exits)
             t_best[p, g] = tn
             slot_best[p, g] = sn
+            rounds[p, g] = r + 1
             alive[p, g] = live(r + 1, p, g, tn)
         r += 1
-    return (t_best.reshape(n_parts, bp).contiguous(),
-            slot_best.reshape(n_parts, bp).contiguous())
+    out = (t_best.reshape(n_parts, bp).contiguous(),
+           slot_best.reshape(n_parts, bp).contiguous())
+    return out + (rounds, int(read.sum()), exits) if stats else out
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time one H100 could take for a kernel's work.
+# ---------------------------------------------------------------------------
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): f32
+# outside the tensor cores, and HBM3 bandwidth.  The f32 rate counts an
+# FMA as two operations; the kernels are built with --fmad=false to stay
+# bitwise equal to their plain versions, and unfused a lane does one
+# operation per clock, PEAK_FP32_UNFUSED.  The bound uses the published
+# rate, so an unfused kernel's share cannot pass 0.5.
+PEAK_FP32 = 67e12            # operations / s
+PEAK_FP32_UNFUSED = PEAK_FP32 / 2
+PEAK_HBM = 3.35e12           # bytes / s
+# f32 arithmetic operations of one ray-triangle test done up to each of
+# its exits, counted from the sources; comparisons, selects and the running
+# minima are not counted.  Moller-Trumbore (csrc/mt.cuh, mt_test): a lane
+# that is invalid or the ray's previous slot needs none; |det| < eps leaves
+# after 14 (9 for p, 5 for det); u outside [0, 1] after 24 (1 division, 3
+# for tv, 6 for u); v < 0 after 39 (9 for q, 6 for v); u + v > 1 after 40;
+# a pair that forms t takes 46.  Baldwin-Weber (csrc/traverse_tilebw.cu,
+# kernels.tile_plain): none for an invalid lane or the previous slot; 6
+# (the normal's rate along d, 5, and det_s) when det_s or |n.d| is too
+# small for either acceptance; 14 (the normal's form at the origin, 6, the
+# division and t) when t is outside both t ranges; 27 (u's two forms, 6 +
+# 5, and u) when u < -MU; 40 (v's, 13) when v < -MU; 41 with u + v.
+MT_STAGE_OPS = (0, 14, 24, 39, 40, 46)
+BW_STAGE_OPS = (0, 6, 14, 27, 40, 41)
+MT_OPS, BW_OPS = MT_STAGE_OPS[-1], BW_STAGE_OPS[-1]
+# Bytes of one block that a round reads: rows 0-10 of tb, rows 0-4 of tw.
+MT_BLOCK_BYTES = 11 * LANES * 4
+BW_BLOCK_BYTES = 5 * 3 * LANES * 4
+
+
+def traversal_bound(exits, stage_ops, io_bytes: int, blocks: int,
+                    block_bytes: int) -> dict:
+    """The least time one H100 could take for a traversal kernel's work.
+    `exits` counts the (ray, triangle) pairs the walk tests (every round of
+    every program, dead bands included, as the plain version walks it) by
+    the exit each takes, and `stage_ops` (MT_STAGE_OPS or BW_STAGE_OPS)
+    gives the operations done up to each exit; their sum over PEAK_FP32 is
+    the compute time.  The bytes are `io_bytes` (rays read, outputs
+    written, candidate lists) plus `blocks` distinct blocks of
+    `block_bytes`, over PEAK_HBM.  Returns {"ms", "by" ("compute" or
+    "bytes"), "tests", "ops", "bytes", "unfused_ms"}: the bound is the
+    larger time; unfused_ms is the compute time at PEAK_FP32_UNFUSED."""
+    exits = [int(n) for n in exits]
+    if len(exits) != len(stage_ops):
+        raise ValueError(f"{len(exits)} exit counts for {len(stage_ops)} "
+                         f"stages")
+    tests = sum(exits)
+    ops = sum(n * k for n, k in zip(exits, stage_ops))
+    nbytes = io_bytes + blocks * block_bytes
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_HBM
+    return {"ms": max(t_ops, t_bytes) * 1e3,
+            "by": "compute" if t_ops >= t_bytes else "bytes",
+            "tests": tests, "ops": ops, "bytes": nbytes,
+            "unfused_ms": ops / PEAK_FP32_UNFUSED * 1e3}
+
+
+def visited_blocks(cand_gid, rounds) -> int:
+    """Distinct block ids among the first rounds[i] entries of each list
+    cand_gid[i] (rounds per list, clamped to the list length m)."""
+    m = cand_gid.shape[1]
+    r = torch.as_tensor(rounds, device=cand_gid.device).long().clamp(max=m)
+    walked = torch.arange(m, device=cand_gid.device)[None, :] < r[:, None]
+    return int(torch.unique(cand_gid[walked]).numel())
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +580,11 @@ def _check_tensors(dev, named):
     if dev.type == "cuda" and ST != 16:
         raise ValueError(f"the CUDA kernels are built for 16-ray subtiles, "
                          f"not MRT_SUBTILE={ST}")
+    if dev.type == "cuda":
+        # Rays and blocks are read 16 bytes at a time.
+        for name, x, _ in named:
+            if name in ("rays", "tb", "tw") and x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check_rays(rays):
@@ -521,9 +661,13 @@ def traverse_tilemt(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     bp = rays.shape[0]
     out = torch.empty((bp, 4), dtype=torch.float32, device=rays.device)
     if bp:
+        # Scratch for the kernel's tile order: counts, then the order.
+        scratch = torch.empty(2 * (bp // TILE), dtype=torch.int32,
+                              device=rays.device)
         _launch("mrt_traverse_tilemt", "tilemt", rays.device,
-                *_walk_args(tb, cand_gid, cand_entry, rays, out, bp // TILE,
-                            m, any_hit))
+                _ptr(tb), _ptr(cand_gid), _ptr(cand_entry), _ptr(rays),
+                _ptr(scratch), _ptr(out), ctypes.c_int(bp // TILE),
+                ctypes.c_int(m), ctypes.c_int(int(any_hit)))
     return out
 
 

@@ -16,7 +16,7 @@ from . import film, sampling
 from .cameras import generate_rays
 from .ops import block_traversal
 from .shaders.engine import trace_image_sample
-from .types import Camera, RenderConfig, Scene
+from .types import Camera, RenderConfig, Scene, entry_device
 
 
 def _pixel_order(config: RenderConfig, device=None):
@@ -102,13 +102,15 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
 
 class Renderer:
     """Synchronous progressive renderer: renders sample by sample and
-    exposes the running image, bitmap and casted-ray total.  With ACC_BVH
-    the block grid is built on construction (on any device: on the CPU
-    the traversal runs the kernels' plain versions)."""
+    exposes the running image, bitmap and casted-ray total.  It runs on
+    the CUDA card unless `device` names another (see types.entry_device:
+    without a card it raises); on the CPU the traversal runs the kernels'
+    plain versions.  With ACC_BVH the block grid is built on
+    construction."""
 
     def __init__(self, scene: Scene, camera: Camera, config: RenderConfig,
                  device=None):
-        device = scene.device if device is None else torch.device(device)
+        device = entry_device(device)
         if config.accelerator == C.ACC_BVH and scene.bvh is None:
             scene = block_traversal.build(scene, device=device)
         self.scene = scene.to(device)

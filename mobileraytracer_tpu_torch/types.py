@@ -4,7 +4,9 @@
 Geometry is kept as structure-of-arrays tensors padded to a capacity with
 a validity mask, exactly as the JAX package lays it out, so the tensors
 convert one to one (see convert.py).  Every dataclass moves between
-devices with `.to(device)`; nothing here picks a device on its own.
+devices with `.to(device)`.  The entry points that place a scene
+(`Renderer`, `block_traversal.build`) take their device from
+`entry_device`: the CUDA card unless the caller asks for another.
 """
 from __future__ import annotations
 
@@ -15,6 +17,20 @@ import numpy as np
 import torch
 
 from . import constants as C
+
+
+def entry_device(device=None) -> torch.device:
+    """The device an entry point places its scene on: `device`, or the
+    CUDA card when it is None.  Raises when that is a CUDA device and
+    PyTorch has none; pass device="cpu" to run on the CPU, where the
+    kernels' plain versions take over."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mobileraytracer_tpu_torch runs on a CUDA device unless asked "
+            "otherwise, and torch.cuda.is_available() is false; pass "
+            "device=\"cpu\" to run on the CPU")
+    return dev
 
 
 class TensorData:

@@ -7,6 +7,8 @@ with PyTorch for CUDA alone:
 (`--noconftest`: the repository's conftest configures jax.)  Every test
 skips where torch.cuda is unavailable.
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,9 +18,12 @@ from mobileraytracer_tpu_torch import constants as C
 from mobileraytracer_tpu_torch import renderer
 from mobileraytracer_tpu_torch.ops import block_traversal as bt
 from mobileraytracer_tpu_torch.ops import kernels as K
-from mobileraytracer_tpu_torch.types import RenderConfig
+from mobileraytracer_tpu_torch.types import RenderConfig, Triangles
 
 torch.set_num_threads(2)
+
+EDGE_TILE = (pathlib.Path(__file__).parent / "data"
+             / "torch_port_shadow_tile_edge.npy")
 
 
 @pytest.fixture(scope="module")
@@ -136,3 +141,170 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_scene):
     occ_b = bt.traverse(scene.bvh, scene.triangles, o, d, md, pk, pi,
                         any_hit=True)[1] >= 0
     assert torch.equal(occ, occ_b)
+
+
+# ---------------------------------------------------------------------------
+# The banded and tile-MT kernels on inputs that reach their early exits,
+# the clamped prefetch, the split-round merge and the tile order.
+# ---------------------------------------------------------------------------
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (see chip_smoke.py)")
+    return torch.device("cuda")
+
+
+def _both_equal_plain(tb, rays, lists, any_hit):
+    """Runs tile-MT and banded on `rays` ((Bp, 8), Bp a multiple of 128)
+    with lists = {K.TILE: (cg, ce), K.ST: (cg, ce)} and asserts each
+    equals its plain version bit for bit.  Returns the two outputs."""
+    cg, ce = lists[K.TILE]
+    args = (tb, cg, ce, rays, cg.shape[1], any_hit)
+    got_t = K.traverse_tilemt(*args)
+    assert torch.equal(got_t, K.tilemt_plain(*args))
+    cg, ce = lists[K.ST]
+    args = (tb, cg, ce, rays, cg.shape[1], any_hit)
+    got_b = torch.stack(K.traverse_banded(*args))
+    assert torch.equal(got_b, torch.stack(K.banded_plain(*args)))
+    return got_t, got_b
+
+
+def _windows(bvh, rays):
+    out = {}
+    for st in (K.TILE, K.ST):
+        top = dict(top_s=bt.TILE_TOP_S, top_m=bt.TILE_TOP_M) \
+            if st == K.TILE else {}
+        cg, _, ce, _ = bt._candidates(bvh, rays[:, :3], rays[:, 3:6], st=st,
+                                      **top)
+        out[st] = (cg, ce)
+    return out
+
+
+def _soup_with_twins(n, dev):
+    """n random triangles whose last quarter repeats the first quarter
+    exactly, so coincident pairs tie at the same t."""
+    rng = np.random.default_rng(3)
+    a = rng.uniform(-1, 1, (n, 3))
+    ab = rng.uniform(-0.3, 0.3, (n, 3))
+    ac = rng.uniform(-0.3, 0.3, (n, 3))
+    q = n // 4
+    for x in (a, ab, ac):
+        x[n - q:] = x[:q]
+    f = lambda x: torch.from_numpy(x.astype(np.float32))
+    tris = Triangles(
+        point_a=f(a), ab=f(ab), ac=f(ac), normal_a=torch.zeros(n, 3),
+        normal_b=torch.zeros(n, 3), normal_c=torch.zeros(n, 3),
+        uv_a=torch.full((n, 2), -1.0), uv_b=torch.full((n, 2), -1.0),
+        uv_c=torch.full((n, 2), -1.0), mat_id=torch.zeros(n, dtype=torch.int32),
+        valid=torch.ones(n, dtype=torch.bool))
+    _, grid = bt.build_blocks(tris)
+    return grid.to(dev)
+
+
+def _rays(o, d, t0, prev=None):
+    prev = torch.full_like(t0, -1.0) if prev is None else prev
+    return torch.cat([o, d, t0[:, None], prev[:, None]], 1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kernels_equal_plain_on_soup_with_coincident_twins(any_hit):
+    dev = _need_cuda()
+    grid = _soup_with_twins(120000, dev)
+    rng = np.random.default_rng(5)
+    b = 1024
+    o = torch.from_numpy(rng.uniform(-2, 2, (b, 3)).astype(np.float32))
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True))
+    t0 = torch.full((b,), 1.0 if any_hit else C.RAY_LENGTH_MAX)
+    rays = _rays(o, d, t0).to(dev)
+    got_t, got_b = _both_equal_plain(grid.tb, rays, _windows(grid, rays),
+                                     any_hit)
+    assert (got_t[:, 1] >= 0).sum() > b // 20
+    # Rays whose previous slot is their hit: the kernels must skip it.
+    prev = torch.where(got_t[:, 1] >= 0, got_t[:, 1], -1.0)
+    rays2 = _rays(o.to(dev), d.to(dev), t0.to(dev), prev)
+    got_t2, _ = _both_equal_plain(grid.tb, rays2, _windows(grid, rays2),
+                                  any_hit)
+    hit = prev >= 0
+    assert not bool((got_t2[hit, 1] == prev[hit]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kernels_equal_plain_on_the_shadow_edge_tile(any_hit):
+    dev = _need_cuda()
+    scene, _, _ = bench_scenes.conference_proxy()
+    scene = bt.build(scene, device=dev)
+    a = torch.from_numpy(np.load(EDGE_TILE)).to(dev)
+    prev = torch.where(a[:, 7] == C.PRIM_TRIANGLE, a[:, 8], -1.0)
+    t0 = a[:, 6] if any_hit else torch.full_like(a[:, 6], C.RAY_LENGTH_MAX)
+    rays = _rays(a[:, 0:3], a[:, 3:6], t0, prev)
+    _both_equal_plain(scene.bvh.tb, rays, _windows(scene.bvh, rays),
+                      any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 6])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kernels_equal_plain_on_short_and_repeated_lists(m, any_hit):
+    """Hand-made lists: one entry, or six that name the same few blocks
+    again and again, with equal entry distances; one program each (as the
+    refill sends) and a batch of several."""
+    dev = _need_cuda()
+    scene, cam, _ = bench_scenes.conference_proxy(target_prims=20000)
+    scene = bt.build(scene, device=dev)
+    u, v, _, _ = renderer._pixel_order(RenderConfig(width=32, height=32),
+                                       dev)
+    zero = torch.zeros_like(u)
+    o, d = cameras.generate_rays(cam.to(dev), u, v, zero, zero)
+    t0 = torch.full((o.shape[0],), 900.0 if any_hit else C.RAY_LENGTH_MAX,
+                    device=dev)
+    rays = _rays(o, d, t0)
+    nb = scene.bvh.tb.shape[0]
+    gen = torch.Generator().manual_seed(m)
+    for bp in (K.TILE, rays.shape[0]):
+        lists = {}
+        for st in (K.TILE, K.ST):
+            rows = bp // st
+            cg = torch.randint(0, 3, (rows, m), generator=gen) * (nb // 3)
+            ce = torch.sort(torch.randint(0, 2, (rows, m), generator=gen)
+                            .float() * 100.0, 1).values
+            lists[st] = (cg.to(torch.int32).to(dev), ce.to(dev))
+        got_t, got_b = _both_equal_plain(scene.bvh.tb, rays[:bp], lists,
+                                         any_hit)
+        assert int(got_t[:, 2].max()) <= m and int(got_b[2].max()) <= m
+
+
+@pytest.mark.cuda
+def test_kernels_stop_after_round_zero_when_every_ray_is_occluded():
+    """Each ray aims at the centre of a triangle of block 0, which heads
+    every list: after round 0 every ray is occluded, so both kernels stop
+    there (any-hit)."""
+    dev = _need_cuda()
+    scene, _, _ = bench_scenes.conference_proxy(target_prims=20000)
+    scene = bt.build(scene, device=dev)
+    tb = scene.bvh.tb
+    blk = tb[0]
+    area = torch.cross(blk[3:6].T, blk[6:9].T, dim=1).norm(dim=1)
+    lanes = torch.nonzero((blk[9] > 0.5) & (area > 1e-6))[:, 0]
+    b = 2 * K.TILE
+    pick = lanes[torch.arange(b, device=dev) % lanes.numel()]
+    centre = blk[0:3, pick].T + (blk[3:6, pick].T + blk[6:9, pick].T) / 3.0
+    normal = torch.cross(blk[3:6, pick].T, blk[6:9, pick].T, dim=1)
+    normal = normal / normal.norm(dim=1, keepdim=True)
+    o = centre + normal
+    d = -normal
+    rays = _rays(o, d, torch.full((b,), 10.0, device=dev))
+    nb = tb.shape[0]
+    lists = {}
+    for st in (K.TILE, K.ST):
+        rows = b // st
+        cg = torch.arange(4, device=dev, dtype=torch.int32)[None, :] \
+            * (nb // 4)
+        ce = torch.arange(4, device=dev, dtype=torch.float32)[None, :]
+        lists[st] = (cg.expand(rows, 4).contiguous(),
+                     ce.expand(rows, 4).contiguous())
+    got_t, got_b = _both_equal_plain(tb, rays, lists, True)
+    assert bool((got_t[:, 0] < 10.0).all())
+    assert int(got_t[:, 2].max()) == 1 and int(got_b[2].max()) == 1

@@ -69,7 +69,7 @@ def test_cornell_frame_matches_jax(share):
     # The Renderer entry point builds its own block grid from the port's
     # scene (bit-equal to the JAX build) and gives the same frame.
     ts, tc2 = tscenes.load_builtin(0, 1.0)
-    r = Renderer(ts, tc2, TConfig(**kw))
+    r = Renderer(ts, tc2, TConfig(**kw), device="cpu")
     img = r.render()
     np.testing.assert_array_equal(img, tout["image"].numpy())
     assert r.total_rays == int(tout["rays"])

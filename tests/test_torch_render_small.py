@@ -30,7 +30,7 @@ def test_small_batch_jittered_frame_matches_jax():
     cfg = TConfig(**kw)
     assert cfg.resolved_pixel_jitter()
     engine.WALK["steps"] = 0
-    r = Renderer(ts, tc, TConfig(**kw, seed=3))
+    r = Renderer(ts, tc, TConfig(**kw, seed=3), device="cpu")
     img = r.render()
     # Full-batch steps only: two samples of at most max_walk_iters each,
     # more than one step each (the mirror sphere pushes children).

@@ -91,7 +91,7 @@ def check_scene_queries(mode):
     js, _ = jscenes.load_builtin(C.SCENE_CORNELL2, 1.0)
     ts, _ = tscenes.load_builtin(C.SCENE_CORNELL2, 1.0)
     jsp = jpb.build(js)
-    tsp = tbt.build(ts)
+    tsp = tbt.build(ts, device="cpu")
     rng = np.random.default_rng(5)
     b = 256
     o = rng.uniform(-0.3, 0.3, (b, 3)).astype(np.float32)
