@@ -29,7 +29,7 @@ raises and the script exits nonzero):
      the f32 operations its tested pairs need, each up to the exit it
      takes as counted by the plain version's walk of the same batch, over
      the H100's published FP32 rate, and its bytes over the HBM rate; the
-     share at the unfused rate beside it), and one call
+     share at the unfused rate beside it), and five calls
      of each under torch.profiler with its kernels apart; then one frame
      under torch.profiler: device busy time, idle share and the largest
      device ops;
@@ -43,7 +43,8 @@ raises and the script exits nonzero):
      agree, and the two pairs may differ only on blockers within one ulp
      of the segment end, which the JAX package's tile windows miss too.  Each new kernel
      against its plain version, bitwise, on the batches it was given, and
-     CUDA-event timings of the passes and kernels with their bounds.
+     CUDA-event timings of the passes and kernels with their bounds, and
+     five calls of each under torch.profiler with its kernels apart.
 The card's name and power limit and then the kernels' JSON record come
 just before the last line, {"ok": true, "device": {...}}.
 """
@@ -125,7 +126,7 @@ def kernel_bound(K, kind, args, got, walk):
     else:                                # rounds per tile
         rounds = walked = got[:, 2 if kind == "tilemt" else 7].reshape(
             -1, K.TILE)[:, 0]
-    if kind == "tilemt":
+    if kind != "banded":
         io += 4 * cg.shape[0]            # the tile order
     block = K.BW_BLOCK_BYTES if kind == "tilebw" else K.MT_BLOCK_BYTES
     return K.traversal_bound(walk, stage_ops, io,
@@ -158,8 +159,8 @@ def say_bound(phase, kind, what, n, k_ms, p_ms, bound, rounds, card):
 
 def profile_device(run):
     """Device busy time of run() under torch.profiler, summed over the
-    device's own kernel and copy rows.  Returns (busy ms, {name: ms} of the
-    largest rows)."""
+    device's own kernel and copy rows.  Returns (busy ms, {name: (ms,
+    events recorded)} of the largest rows)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -168,10 +169,34 @@ def profile_device(run):
     rows = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            rows[e.key] = rows.get(e.key, 0.0) + e.self_device_time_total / 1e3
-    busy = sum(rows.values())
-    top = dict(sorted(rows.items(), key=lambda kv: -kv[1])[:6])
+            ms, n = rows.get(e.key, (0.0, 0))
+            rows[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    busy = sum(ms for ms, _ in rows.values())
+    top = dict(sorted(rows.items(), key=lambda kv: -kv[1][0])[:6])
     return busy, top
+
+
+def say_profile(phase, kind, args, card, reps=5):
+    """`reps` calls of kernel `kind`'s wrapper under torch.profiler: the mean
+    ms of each of its launch's own kernels (the tile kernels: the tile
+    order's two passes, then the walk) over the events the profiler
+    recorded, which are sometimes fewer than the calls."""
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    wrapper = {"tilemt": K.traverse_tilemt, "banded": K.traverse_banded,
+               "tilebw": K.traverse_tile, "resident": K.traverse_resident}
+
+    def run():
+        for _ in range(reps):
+            wrapper[kind](*args)
+
+    _, rows = profile_device(run)
+    name = lambda k: k.replace("(anonymous namespace)::", "").split(
+        "(")[0].split()[-1]
+    say(phase, f"{KERNELS[kind]['name']}, {reps} calls under torch.profiler,"
+               f" mean ms per recorded launch: " + ("; ".join(
+                   f"{name(k)} {ms / n:.4f} ({n} recorded)"
+                   for k, (ms, n) in rows.items())
+                   or "no device rows recorded") + f" [{card}]")
 
 
 def main():
@@ -371,7 +396,7 @@ def main():
     say(6, f"one frame under torch.profiler: device busy {busy:.3f} ms of "
            f"{frame_ms:.3f} ms, idle share {1.0 - busy / frame_ms:.3f}; "
            f"largest device rows (ms): "
-           + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top.items())
+           + "; ".join(f"{k[:60]} {ms:.3f}" for k, (ms, _) in top.items())
            + f" [{card}]")
     records = []
     for kind in ("tilemt", "banded"):
@@ -384,12 +409,7 @@ def main():
                                      exits[(kind, what)])
         say_bound(6, kind, f"frame's {what}", args[3].shape[0], k_ms, p_ms,
                   bound, rounds, card)
-        # The launch's own kernels (tile-MT: the tile order's two passes,
-        # then the walk), apart.
-        _, rows = profile_device(lambda: wrapped[kind](*args))
-        say(6, f"{KERNELS[kind]['name']}, one call under torch.profiler: "
-               + "; ".join(f"{k.split('::')[-1].split('(')[0]} {v:.4f} ms"
-                           for k, v in rows.items()) + f" [{card}]")
+        say_profile(6, kind, args, card)
         records.append(record(kind, launches[kind], err[kind], k_ms, p_ms,
                               bound, rounds, card))
 
@@ -571,6 +591,7 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
                                      walks[(kind, what)])
         say_bound(7, kind, what, args[3].shape[0], k_ms, p_ms, bound, rounds,
                   card)
+        say_profile(7, kind, args, card)
         records.append(record(kind, launches[kind], err[kind], k_ms, p_ms,
                               bound, rounds, card))
     args = captured[("tilebw", "shadow (any-hit)")]

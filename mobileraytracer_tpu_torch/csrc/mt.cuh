@@ -1,7 +1,8 @@
-// Shared pieces of the Moller-Trumbore traversal kernels
-// (traverse_banded.cu, traverse_tilemt.cu, traverse_resident.cu): the block
-// layout, the asynchronous block copy, and the Moller-Trumbore round of one
-// ray against one 128-triangle block.
+// Shared pieces of the traversal kernels: the block layout, the
+// asynchronous block copy, the trim of a block's scan at its last valid lane
+// (traverse_tilebw.cu, traverse_resident.cu), and the Moller-Trumbore round
+// of one ray against one 128-triangle block (traverse_banded.cu,
+// traverse_tilemt.cu, traverse_resident.cu).
 //
 // The arithmetic is the JAX package's, operation for operation
 // (mobileraytracer_tpu/ops/pallas_bvh.py:524-548 and :1368-1391, which
@@ -31,7 +32,10 @@
 // taken four triangles at a time and stay exact.  The early exits leave
 // each test a chain of dependent operations with branches between them, so
 // a ray's round is latency-bound: the kernels split a ray's 128 triangles
-// between threads to shorten it.
+// between threads to shorten it.  For the same reason a scan may stop at a
+// block's last valid lane (valid_groups): the lanes past it are rejected
+// before anything is computed, and the one case where they still count, a
+// round with no hit below kBig, is mt_finish's full rerun.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,22 +62,30 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
   return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
-// Starts the copy of rows 0-10 of block `src` into `dst` with cp.async
-// (16 bytes each, through L2 only), thread `k` of `n` taking every n-th
-// piece, and commits them as one group.  The caller waits with
-// cp_async_wait and then makes the block visible with a barrier.
-__device__ __forceinline__ void copy_block_async(float (*dst)[kLanes],
-                                                 const float* __restrict__ src,
-                                                 int k, int n) {
-  float4* d = reinterpret_cast<float4*>(&dst[0][0]);
+// Starts the copy of the first kN 16-byte pieces of `src` into `dst` with
+// cp.async (through L2 only), thread `k` of `n` taking every n-th piece,
+// and commits them as one group.  The caller waits with cp_async_wait and
+// then makes the copy visible with a barrier.
+template <int kN>
+__device__ __forceinline__ void copy_async(float* dst,
+                                           const float* __restrict__ src,
+                                           int k, int n) {
+  float4* d = reinterpret_cast<float4*>(dst);
   const float4* s = reinterpret_cast<const float4*>(src);
-  for (int i = k; i < kChunks; i += n) {
+  for (int i = k; i < kN; i += n) {
     const unsigned a = (unsigned)__cvta_generic_to_shared(d + i);
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
                  "l"(s + i)
                  : "memory");
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Starts the copy of rows 0-10 of block `src` into `dst` (copy_async).
+__device__ __forceinline__ void copy_block_async(float (*dst)[kLanes],
+                                                 const float* __restrict__ src,
+                                                 int k, int n) {
+  copy_async<kChunks>(&dst[0][0], src, k, n);
 }
 
 // Waits until at most `n` of this thread's copy groups are in flight.
@@ -127,25 +139,52 @@ __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
+// The float4 groups of a block's lanes (four lanes each) up to the last
+// one holding a lane that `valid` (the block's row of valid flags, in
+// shared memory) marks valid: 0-32.  Lanes past it fail every test at the
+// lane check.  Every lane of the warp must call it.
+__device__ __forceinline__ int valid_groups(const float* valid) {
+  const float4 v = reinterpret_cast<const float4*>(valid)[threadIdx.x & 31];
+  const unsigned any = __ballot_sync(
+      0xffffffffu, v.x > 0.5f || v.y > 0.5f || v.z > 0.5f || v.w > 0.5f);
+  return 32 - __clz(any);
+}
+
+// Triangles [j, j + 4) of `blk` against ray r, one float4 read of each
+// row.
+__device__ __forceinline__ void mt_test4(const float (*blk)[kLanes], int j,
+                                         const Ray& r, float t_best,
+                                         float& tmin, float& smin) {
+  float4 w[kRowsUsed];
+#pragma unroll
+  for (int k = 0; k < kRowsUsed; ++k) {
+    w[k] = *reinterpret_cast<const float4*>(&blk[k][j]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    mt_test(r, comp(w[0], c), comp(w[1], c), comp(w[2], c), comp(w[3], c),
+            comp(w[4], c), comp(w[5], c), comp(w[6], c), comp(w[7], c),
+            comp(w[8], c), comp(w[9], c), comp(w[10], c), t_best, tmin, smin);
+  }
+}
+
 // Triangles [j0, j0 + n) of `blk` (n a multiple of 4) against ray r,
 // four triangles per float4 read of each row; (tmin, smin) start at
 // (kBig, kBig).
 __device__ __forceinline__ void mt_scan(const float (*blk)[kLanes], int j0,
                                         int n, const Ray& r, float t_best,
                                         float& tmin, float& smin) {
-  for (int j = j0; j < j0 + n; j += 4) {
-    float4 w[kRowsUsed];
-#pragma unroll
-    for (int k = 0; k < kRowsUsed; ++k) {
-      w[k] = *reinterpret_cast<const float4*>(&blk[k][j]);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      mt_test(r, comp(w[0], c), comp(w[1], c), comp(w[2], c), comp(w[3], c),
-              comp(w[4], c), comp(w[5], c), comp(w[6], c), comp(w[7], c),
-              comp(w[8], c), comp(w[9], c), comp(w[10], c), t_best, tmin,
-              smin);
-    }
+  for (int j = j0; j < j0 + n; j += 4) mt_test4(blk, j, r, t_best, tmin, smin);
+}
+
+// Triangles 4g to 4g + 3 of `blk` for g = g0, g0 + step, ... below g_end,
+// as mt_scan.
+__device__ __forceinline__ void mt_scan_groups(const float (*blk)[kLanes],
+                                               int g0, int g_end, int step,
+                                               const Ray& r, float t_best,
+                                               float& tmin, float& smin) {
+  for (int g = g0; g < g_end; g += step) {
+    mt_test4(blk, 4 * g, r, t_best, tmin, smin);
   }
 }
 
@@ -153,7 +192,7 @@ __device__ __forceinline__ void mt_scan(const float (*blk)[kLanes], int j0,
 // triangles and updates (t_best, slot_best).  The round's candidate t is
 // kept only where it beats t_best; tmin is the round's minimum and smin the
 // lowest slot at tmin; the round wins only if strictly closer than t_best.
-// The resident kernel runs it on blocks read in place.
+// Only mt_finish runs it, for the one round the early exits cannot decide.
 __device__ __forceinline__ void mt_round(const float (*blk)[kLanes],
                                          const Ray& r, float& t_best,
                                          float& slot_best) {

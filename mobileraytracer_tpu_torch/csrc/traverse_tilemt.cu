@@ -25,9 +25,9 @@
 //     registers one block of 512 threads fits on an SM (two would need 64
 //     registers a thread);
 //   - the tiles start most listed candidates first (count_kernel and a
-//     one-block counting sort, order_kernel, before the walk), so the
-//     longest walks overlap the others instead of ending the launch alone;
-//     the order changes when a tile runs, never what it computes;
+//     one-block counting sort, order_kernel, before the walk; tile_order.cuh),
+//     so the longest walks overlap the others instead of ending the launch
+//     alone; the order changes when a tile runs, never what it computes;
 //   - the blocks of rounds r and r + 1 sit in two shared-memory buffers;
 //     round r + 2's block is copied with cp.async while round r + 1 runs,
 //     from the index clamped to the list, so a copy for a round that never
@@ -39,6 +39,7 @@
 #include <cuda_runtime.h>
 
 #include "mt.cuh"
+#include "tile_order.cuh"
 
 namespace {
 
@@ -49,51 +50,6 @@ constexpr int kSplit = 4;                    // threads per ray
 constexpr int kThreads = kTile * kSplit;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpRays = 32 / kSplit;       // rays per warp
-constexpr int kCountThreads = 256;    // threads of a count_kernel block
-constexpr int kOrderThreads = 1024;   // threads of the order_kernel block
-
-// counts[t] = the listed candidates of tile t: entries below kBig / 2
-// (padding is kBig).  One warp per tile, reading its list coalesced.
-__global__ void __launch_bounds__(kCountThreads)
-count_kernel(const float* __restrict__ entry, int* __restrict__ counts,
-             int n_tiles, int m) {
-  const int t = blockIdx.x * (kCountThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (t >= n_tiles) return;                    // the whole warp
-  const float* e = entry + (size_t)t * m;
-  int c = 0;
-  for (int i = lane; i - lane < m; i += 32) {
-    c += __popc(__ballot_sync(0xffffffffu, i < m && e[i] < 0.5f * kBig));
-  }
-  if (lane == 0) counts[t] = c;
-}
-
-// Writes to `order` the tiles sorted by their counts, most first: a
-// counting sort over the m + 1 possible counts in one block, with `start`
-// (m + 1 ints of dynamic shared memory) the bins' next slots.
-__global__ void __launch_bounds__(kOrderThreads)
-order_kernel(const int* __restrict__ counts, int* __restrict__ order,
-             int n_tiles, int m) {
-  extern __shared__ int start[];
-  for (int i = threadIdx.x; i <= m; i += kOrderThreads) start[i] = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < n_tiles; t += kOrderThreads) {
-    atomicAdd(&start[m - counts[t]], 1);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int sum = 0;
-    for (int i = 0; i <= m; ++i) {
-      const int h = start[i];
-      start[i] = sum;
-      sum += h;
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < n_tiles; t += kOrderThreads) {
-    order[atomicAdd(&start[m - counts[t]], 1)] = t;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 tilemt_kernel(const float* __restrict__ tb, const int* __restrict__ gid,
@@ -171,18 +127,11 @@ extern "C" int mrt_traverse_tilemt(const float* tb, const int* gid,
                                    const float* entry, const float* rays,
                                    int* scratch, float* out, int n_tiles,
                                    int m, int any_hit, cudaStream_t stream) {
-  const size_t bins = (size_t)(m + 1) * sizeof(int);
-  if (bins > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = order_tiles(entry, scratch, n_tiles, m, stream);
+  if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
-    int* counts = scratch;
-    int* order = scratch + n_tiles;
-    constexpr int kTilesPerBlock = kCountThreads / 32;
-    count_kernel<<<(n_tiles + kTilesPerBlock - 1) / kTilesPerBlock,
-                   kCountThreads, 0, stream>>>(entry, counts, n_tiles, m);
-    order_kernel<<<1, kOrderThreads, bins, stream>>>(counts, order, n_tiles,
-                                                     m);
-    tilemt_kernel<<<n_tiles, kThreads, 0, stream>>>(tb, gid, entry, rays,
-                                                    order, out, m, any_hit);
+    tilemt_kernel<<<n_tiles, kThreads, 0, stream>>>(
+        tb, gid, entry, rays, scratch + n_tiles, out, m, any_hit);
   }
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,7 @@ KERNELS = ("banded", "tilemt", "tilebw", "resident")
 _FUNCS = {
     "mrt_traverse_banded": [_P] * 5 + [_I] * 3 + [_P],
     "mrt_traverse_tilemt": [_P] * 6 + [_I] * 3 + [_P],
-    "mrt_traverse_tilebw": [_P] * 5 + [_I] * 3
+    "mrt_traverse_tilebw": [_P] * 6 + [_I] * 3
                            + [ctypes.POINTER(ctypes.c_float), _P],
     "mrt_traverse_resident": [_P] * 5 + [_I] * 3 + [_P],
     **{f"mrt_{k}_info": [ctypes.POINTER(_I)] for k in KERNELS},

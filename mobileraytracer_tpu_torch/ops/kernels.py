@@ -631,10 +631,10 @@ def _launch(fn: str, name: str, dev, *args):
     LAUNCHES[name] += 1
 
 
-def _walk_args(table, cand_gid, cand_entry, rays, out, n, m, any_hit):
-    return (_ptr(table), _ptr(cand_gid), _ptr(cand_entry), _ptr(rays),
-            _ptr(out), ctypes.c_int(n), ctypes.c_int(m),
-            ctypes.c_int(int(any_hit)))
+def _order_scratch(bp, dev):
+    """Scratch for a tile kernel's longest-first tile order
+    (csrc/tile_order.cuh): the tiles' counts, then the order."""
+    return torch.empty(2 * (bp // TILE), dtype=torch.int32, device=dev)
 
 
 def traverse_banded(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
@@ -647,8 +647,9 @@ def traverse_banded(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     out = torch.empty((3, bp), dtype=torch.float32, device=rays.device)
     if bp:
         _launch("mrt_traverse_banded", "banded", rays.device,
-                *_walk_args(tb, cand_gid, cand_entry, rays, out, bp // TILE,
-                            m, any_hit))
+                _ptr(tb), _ptr(cand_gid), _ptr(cand_entry), _ptr(rays),
+                _ptr(out), ctypes.c_int(bp // TILE), ctypes.c_int(m),
+                ctypes.c_int(int(any_hit)))
     return out[0], out[1], out[2]
 
 
@@ -661,9 +662,7 @@ def traverse_tilemt(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     bp = rays.shape[0]
     out = torch.empty((bp, 4), dtype=torch.float32, device=rays.device)
     if bp:
-        # Scratch for the kernel's tile order: counts, then the order.
-        scratch = torch.empty(2 * (bp // TILE), dtype=torch.int32,
-                              device=rays.device)
+        scratch = _order_scratch(bp, rays.device)
         _launch("mrt_traverse_tilemt", "tilemt", rays.device,
                 _ptr(tb), _ptr(cand_gid), _ptr(cand_entry), _ptr(rays),
                 _ptr(scratch), _ptr(out), ctypes.c_int(bp // TILE),
@@ -684,9 +683,11 @@ def traverse_tile(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
     out = torch.empty((bp, 16), dtype=torch.float32, device=rays.device)
     if bp:
         consts = (ctypes.c_float * 11)(*bw_consts(tmg))
+        scratch = _order_scratch(bp, rays.device)
         _launch("mrt_traverse_tilebw", "tilebw", rays.device,
-                *_walk_args(tw, cand_gid, cand_entry, rays, out, bp // TILE,
-                            m, any_hit), consts)
+                _ptr(tw), _ptr(cand_gid), _ptr(cand_entry), _ptr(rays),
+                _ptr(scratch), _ptr(out), ctypes.c_int(bp // TILE),
+                ctypes.c_int(m), ctypes.c_int(int(any_hit)), consts)
     return out
 
 

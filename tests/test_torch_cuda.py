@@ -1,6 +1,7 @@
 """The four CUDA traversal kernels against their plain PyTorch versions,
-on the card.  Imports neither jax nor the JAX package, so it runs on a machine
-with PyTorch for CUDA alone:
+on the card.  Imports neither jax nor the JAX package (nor does
+test_torch_kernel_design, whose hand-made blocks it uses), so it runs on a
+machine with PyTorch for CUDA alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -s
 
@@ -19,6 +20,7 @@ from mobileraytracer_tpu_torch import renderer
 from mobileraytracer_tpu_torch.ops import block_traversal as bt
 from mobileraytracer_tpu_torch.ops import kernels as K
 from mobileraytracer_tpu_torch.types import RenderConfig, Triangles
+from test_torch_kernel_design import bw_blocks, bw_rays
 
 torch.set_num_threads(2)
 
@@ -308,3 +310,83 @@ def test_kernels_stop_after_round_zero_when_every_ray_is_occluded():
     got_t, got_b = _both_equal_plain(tb, rays, lists, True)
     assert bool((got_t[:, 0] < 10.0).all())
     assert int(got_t[:, 2].max()) == 1 and int(got_b[2].max()) == 1
+
+
+# ---------------------------------------------------------------------------
+# The tilebw and resident kernels on inputs that reach their trims, their
+# single-pass top-3 and its full reruns, and the resident lockstep across
+# partitions.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_tilebw_kernel_equals_plain_on_hand_made_blocks(any_hit):
+    """Blocks with exact ties at equal t, counts that are not multiples of
+    4 or 32, a block with no valid lane, lanes at t = 1e30 seen with
+    t_init = 1e30 (the slot resets), and a slot repeated among tracked
+    lanes, walked in random orders by tiles of rays that do and do not
+    reach them."""
+    dev = _need_cuda()
+    tw, far, dup = bw_blocks(0)
+    rng = np.random.default_rng(7)
+    n_tiles, m = 6, 5
+    rays = np.concatenate([bw_rays(rng, K.TILE, C.RAY_LENGTH_MAX if i % 2
+                                   else 4.0) for i in range(n_tiles)])
+    rays[:K.TILE, 3:6] = [0.0, 0.0, 1.0]      # tile 0 tracks the far lanes
+    rays[:K.TILE, 6] = C.RAY_LENGTH_MAX
+    cg = np.stack([rng.permutation(tw.shape[0])[:m] for _ in range(n_tiles)])
+    cg[0], cg[1, 0] = far, dup
+    ce = np.sort(rng.uniform(0.0, 3.0, (n_tiles, m)), 1)
+    ce[:2] = 0.0
+    args = (torch.from_numpy(tw).to(dev),
+            torch.from_numpy(cg.astype(np.int32)).to(dev),
+            torch.from_numpy(ce.astype(np.float32)).to(dev),
+            torch.from_numpy(rays).to(dev), m, any_hit, 1e-4)
+    before = K.LAUNCHES["tilebw"]
+    got = K.traverse_tile(*args)
+    assert K.LAUNCHES["tilebw"] == before + 1
+    want = K.tile_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert len(torch.unique(got[:, 7])) > 1
+    # Tile 0 walks only the far block: its nearest t is 1e30, which is not
+    # below 1e30, so its slot resets to -1.
+    assert bool((got[:K.TILE, 0] == C.RAY_LENGTH_MAX).all())
+    assert bool((got[:K.TILE, 1] == -1.0).all())
+
+
+@pytest.mark.cuda
+def test_resident_kernel_equals_plain_across_partitions():
+    """The 120k soup spans several 640-block partitions; some bands list no
+    block in a partition where another band of their program does, so they
+    keep testing their clamped block while the program runs."""
+    dev = _need_cuda()
+    grid = _soup_with_twins(120000, dev)
+    rng = np.random.default_rng(9)
+    b = 2048
+    o = torch.from_numpy(rng.uniform(-2, 2, (b, 3)).astype(np.float32))
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True))
+    t0 = torch.from_numpy(rng.uniform(0.2, 2.0, b).astype(np.float32))
+    rays = _rays(o, d, t0).to(dev)
+    cg, _, ce, _ = bt._candidates(grid, rays[:, :3], rays[:, 3:6], st=K.ST)
+    tb_pad, starts, glist, n_parts = bt._resident_lists(grid, cg, ce)
+    assert n_parts >= 2
+    runs = (starts[:, 1:] - starts[:, :-1]).reshape(-1, K.GROUP, n_parts)
+    empty_beside_busy = (runs == 0) & (runs > 0).any(1, keepdim=True)
+    assert bool(empty_beside_busy.any())
+    for prev in (None, torch.full_like(t0, -1.0)):
+        if prev is not None:     # rays whose previous slot is their blocker
+            occ_t, occ_s = K.traverse_resident(tb_pad, starts, glist, rays,
+                                               cg.shape[1], n_parts)
+            blocker = torch.where(occ_t < rays[:, 6][None], occ_s, -1.0)
+            prev = blocker.amax(0)
+            rays = _rays(o.to(dev), d.to(dev), t0.to(dev), prev)
+        args = (tb_pad, starts, glist, rays, cg.shape[1], n_parts)
+        before = K.LAUNCHES["resident"]
+        got = torch.stack(K.traverse_resident(*args))
+        assert K.LAUNCHES["resident"] == before + 1
+        want = torch.stack(K.resident_plain(*args))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert bool((got[0] < rays[:, 6]).any())
