@@ -44,9 +44,28 @@ raises and the script exits nonzero):
      of the segment end, which the JAX package's tile windows miss too.  Each new kernel
      against its plain version, bitwise, on the batches it was given, and
      CUDA-event timings of the passes and kernels with their bounds, and
-     five calls of each under torch.profiler with its kernels apart.
-The card's name and power limit and then the kernels' JSON record come
-just before the last line, {"ok": true, "device": {...}}.
+     five calls of each under torch.profiler with its kernels apart;
+  8. the other shaders and accelerators: the cornell2 PathTracer (2 spp)
+     and the 20k proxy's DepthMap and DiffuseMaterial frames at 64x64
+     against the JAX package's, committed as
+     tests/data/torch_port_golden_shaders64.npz (ray counts exact); the
+     conference PathTracer at 512x512: a 1-spp warm-up whose largest
+     tile-MT and banded batches of each kind (the primary step's, the
+     bounce chunks' closest-hit and shadow passes, and their refill loops)
+     are held bitwise against the plain versions, then 16 spp (bench.py
+     --shader 2 --spp 16; 4 spp when 16 would take over a minute), with
+     the launch counters reset just before: ms/frame, rays/s, walk steps,
+     refill loops, launches, and one 1-spp frame under torch.profiler
+     (with the host operators whose kernels take longest); DepthMap and
+     DiffuseMaterial at 512x512 (banded launches); the 20k proxy's regular
+     grid and escape-index BVH against the naive oracle on 2,048 sampled
+     primaries; and the five shaders over the naive scan, the grid, the
+     escape-index tree and the block BVH at 32x32 on cornell, each frame
+     against the naive scan's.  Each kernel's record gains its launches in
+     the PathTracer frame.
+The script's seconds, the card's name and power limit and then the
+kernels' JSON record come just before the last line, {"ok": true,
+"device": {...}}.
 """
 import json
 import pathlib
@@ -57,13 +76,22 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden_conference64.npy"
+GOLDEN_SHADERS = ROOT / "tests" / "data" / "torch_port_golden_shaders64.npz"
 # Held as in tests/test_torch_render.py: the golden comes from XLA's CPU
 # code (FMA-contracted arithmetic), the port rounds every operation.
 IMG_ATOL = 1e-4
 IMG_FRACTION = 0.999
+# The PathTracer's, as in tests/test_torch_pathtracer.py: a pixel holds
+# when |port - golden| <= 1e-4 + 1e-3 |golden| (the Russian roulette boost
+# drives pixels up to ~30), and 99.9% of pixels hold.
+PT_RTOL = 1e-3
 FRAMES = 5
+# Phase 8's PathTracer frame: 16 spp, cut to 4 when 16 times one 1-spp
+# frame exceeds a minute.
+PT_SPP, PT_SPP_CUT, PT_FRAME_S = 16, 4, 60.0
 
 KERNELS = {
     "tilemt": dict(name="traverse_tilemt", route="cuda",
@@ -159,21 +187,90 @@ def say_bound(phase, kind, what, n, k_ms, p_ms, bound, rounds, card):
 
 def profile_device(run):
     """Device busy time of run() under torch.profiler, summed over the
-    device's own kernel and copy rows.  Returns (busy ms, {name: (ms,
-    events recorded)} of the largest rows)."""
+    device's own kernel and copy rows.  Returns (busy ms, device events
+    recorded, {name: (ms, events)} of the largest rows, {aten operator:
+    (ms, calls)} of the host operators whose own device kernels took
+    longest)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    rows = {}
+    rows, ops = {}, {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = rows.get(e.key, (0.0, 0))
-            rows[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        into = (rows if e.device_type == torch.autograd.DeviceType.CUDA
+                else ops if e.key.startswith("aten::") else None)
+        if into is not None:
+            ms, n = into.get(e.key, (0.0, 0))
+            into[e.key] = (ms + e.self_device_time_total / 1e3, n + e.count)
     busy = sum(ms for ms, _ in rows.values())
-    top = dict(sorted(rows.items(), key=lambda kv: -kv[1][0])[:6])
-    return busy, top
+    events = sum(n for _, n in rows.values())
+
+    def top(d):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1][0])[:6])
+    return busy, events, top(rows), top(ops)
+
+
+def recording(captured, tag_fn):
+    """Replaces the tile-MT and banded wrappers with recorders that keep,
+    under tag_fn(kind, any_hit), the arguments of the largest batch each
+    was given (most rays, then the widest candidate list).  Returns the
+    function that puts the wrappers back."""
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    wrapped = {"tilemt": K.traverse_tilemt, "banded": K.traverse_banded}
+
+    def recorder(kind):
+        fn = wrapped[kind]
+
+        def rec(tb, cg, ce, rays, m, any_hit):
+            tag = tag_fn(kind, any_hit)
+            old = captured.get(tag)
+            if old is None or (rays.shape[0], m) > (old[3].shape[0], old[4]):
+                captured[tag] = (tb, cg.clone(), ce.clone(), rays.clone(), m,
+                                 any_hit)
+            return fn(tb, cg, ce, rays, m, any_hit)
+        return rec
+
+    def restore():
+        K.traverse_tilemt, K.traverse_banded = (wrapped["tilemt"],
+                                                wrapped["banded"])
+    K.traverse_tilemt, K.traverse_banded = (recorder("tilemt"),
+                                            recorder("banded"))
+    return restore
+
+
+def check_batches(phase, captured):
+    """Each captured batch through its kernel and its plain version,
+    printed and held bitwise equal (a mismatch raises).  Returns ({kind:
+    max abs err}, {tag: kernel output}, {tag: the plain version's tested
+    pairs by exit})."""
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    kernel = {"tilemt": K.traverse_tilemt, "banded": K.traverse_banded}
+    plain = {"tilemt": K.tilemt_plain, "banded": K.banded_plain}
+    err, outs, exits = {}, {}, {}
+    for (kind, what), args in sorted(captured.items()):
+        got = kernel[kind](*args)
+        *want, exits[(kind, what)] = plain[kind](*args, stats=True)
+        if kind == "banded":
+            got, want = torch.stack(got), torch.stack(want)
+        else:
+            want = want[0]
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err[kind] = max(err.get(kind, 0.0), e)
+        outs[(kind, what)] = got
+        rounds = got[:, 2] if kind == "tilemt" else got[2]
+        say(phase, f"{KERNELS[kind]['name']} {what}: rays {args[3].shape[0]}"
+                   f" m {args[4]}, "
+                   f"{'rounds' if kind == 'tilemt' else 'lockstep rounds'}"
+                   f" per program mean {float(rounds.mean()):.4f} max "
+                   f"{int(rounds.max())}; tested pairs by exit (lane, det, "
+                   f"u, v, u + v, t) {exits[(kind, what)].tolist()}; "
+                   f"bitwise equal to plain: {torch.equal(got, want)} (max "
+                   f"abs err {e})")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kind} {what}: kernel != plain version")
+    return err, outs, exits
 
 
 def say_profile(phase, kind, args, card, reps=5):
@@ -189,7 +286,7 @@ def say_profile(phase, kind, args, card, reps=5):
         for _ in range(reps):
             wrapper[kind](*args)
 
-    _, rows = profile_device(run)
+    _, _, rows, _ = profile_device(run)
     name = lambda k: k.replace("(anonymous namespace)::", "").split(
         "(")[0].split()[-1]
     say(phase, f"{KERNELS[kind]['name']}, {reps} calls under torch.profiler,"
@@ -257,24 +354,16 @@ def main():
            f"{time.perf_counter() - t0:.2f} s")
 
     captured = {}
-    wrapped = {"tilemt": K.traverse_tilemt, "banded": K.traverse_banded}
+    stage = {"mirror": False}
 
-    def recorder(kind, tag_fn):
-        fn = wrapped[kind]
+    def tag(kind, any_hit):
+        if kind == "tilemt":
+            return kind, "primary"
+        if stage["mirror"]:
+            return kind, "mirror (closest)"
+        return kind, "shadow (any-hit)" if any_hit else "refill (closest)"
 
-        def rec(tb, cg, ce, rays, m, any_hit):
-            tag = tag_fn(any_hit)
-            old = captured.get(tag)
-            if old is None or rays.shape[0] > old[3].shape[0]:
-                captured[tag] = (tb, cg.clone(), ce.clone(), rays.clone(), m,
-                                 any_hit)
-            return fn(tb, cg, ce, rays, m, any_hit)
-        return rec
-
-    K.traverse_tilemt = recorder("tilemt", lambda a: ("tilemt", "primary"))
-    K.traverse_banded = recorder(
-        "banded", lambda a: ("banded", "shadow (any-hit)" if a
-                             else "refill (closest)"))
+    restore = recording(captured, tag)
     try:
         out = mrt.render_frame(scene, cam, cfg, key)
         # Mirror bounces of the primary hits: the walker tail's closest-hit
@@ -290,39 +379,15 @@ def main():
         alive = ~hit.missed
         o2, d2 = common.park_dead_lanes(hit.point,
                                         common.reflect(d, hit.normal), alive)
-        K.traverse_banded = recorder("banded",
-                                     lambda a: ("banded", "mirror (closest)"))
+        stage["mirror"] = True
         bt.traverse(scene.bvh, scene.triangles, o2, d2, C.RAY_LENGTH_MAX,
                     hit.prim_kind, hit.prim_id)
     finally:
-        K.traverse_tilemt, K.traverse_banded = (wrapped["tilemt"],
-                                                wrapped["banded"])
+        restore()
     torch.cuda.synchronize()
-
+    err, outs, exits = check_batches(3, captured)
+    wrapped = {"tilemt": K.traverse_tilemt, "banded": K.traverse_banded}
     plain = {"tilemt": K.tilemt_plain, "banded": K.banded_plain}
-    err = {"tilemt": 0.0, "banded": 0.0}
-    outs, exits = {}, {}
-    for (kind, what), args in sorted(captured.items()):
-        got = wrapped[kind](*args)
-        *want, exits[(kind, what)] = plain[kind](*args, stats=True)
-        if kind == "banded":
-            got, want = torch.stack(got), torch.stack(want)
-        else:
-            want = want[0]
-        torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        err[kind] = max(err[kind], e)
-        outs[(kind, what)] = got
-        rounds = got[:, 2] if kind == "tilemt" else got[2]
-        say(3, f"{KERNELS[kind]['name']} {what}: rays {args[3].shape[0]} "
-               f"m {args[4]}, {'rounds' if kind == 'tilemt' else 'lockstep rounds'}"
-               f" per program mean {float(rounds.mean()):.4f} max "
-               f"{int(rounds.max())}; tested pairs by exit (lane, det, u, "
-               f"v, u + v, t) {exits[(kind, what)].tolist()}; bitwise equal "
-               f"to plain: "
-               f"{torch.equal(got, want)} (max abs err {e})")
-        if not torch.equal(got, want):
-            raise AssertionError(f"{kind} {what}: kernel != plain version")
 
     # -- 4 ------------------------------------------------------------------
     K.reset_launches()
@@ -392,7 +457,7 @@ def main():
            f"mean of {FRAMES} frames by CUDA events; host clock per frame "
            f"min {min(walls):.3f} median {statistics.median(walls):.3f} ms)"
            f" [{card}]")
-    busy, top = profile_device(frame)
+    busy, _, top, _ = profile_device(frame)
     say(6, f"one frame under torch.profiler: device busy {busy:.3f} ms of "
            f"{frame_ms:.3f} ms, idle share {1.0 - busy / frame_ms:.3f}; "
            f"largest device rows (ms): "
@@ -416,6 +481,14 @@ def main():
     # -- 7 ------------------------------------------------------------------
     records += traversal_modes(scene, cfg, key, o, d, pk, pi, b, card)
 
+    # -- 8 ------------------------------------------------------------------
+    pt_launches, pt_err = shaders_phase(scene, cam, small, scam, key, card)
+    for rec in records:
+        kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
+        rec["launches_pathtracer"] = pt_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], pt_err.get(kind, 0.0))
+
+    say(8, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -427,7 +500,6 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
     """Phase 7: the "tilebw" and "resident" modes on the 512x512 primaries
     and their NEE shadow batch.  Returns the two kernels' JSON records."""
     from mobileraytracer_tpu_torch import renderer, sampling
-    from mobileraytracer_tpu_torch import constants as C
     from mobileraytracer_tpu_torch.ops import block_traversal as bt
     from mobileraytracer_tpu_torch.ops import intersect as nv
     from mobileraytracer_tpu_torch.ops import kernels as K
@@ -489,21 +561,12 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
 
     # Closest hits: tilebw against tilemt on every ray, and against the
     # naive oracle on a sample, coincident-triangle ties aside.
-    def differ(h, ref, sel=slice(None)):
-        mism = torch.nonzero((h.prim_kind[sel] != ref.prim_kind)
-                             | (h.prim_id[sel] != ref.prim_id))[:, 0]
-        tri = C.PRIM_TRIANGLE
-        ties = int(((h.prim_kind[sel][mism] == tri)
-                    & (ref.prim_kind[mism] == tri)
-                    & (h.t[sel][mism] == ref.t[mism])).sum())
-        return len(mism), ties
-
-    n_mt, ties_mt = differ(hit_bw, hit_mt)
+    n_mt, ties_mt = hits_differ(hit_bw, hit_mt)
     sample = torch.randperm(b, generator=torch.Generator().manual_seed(0))[
         :2048].to(dev)
     naive = nv.intersect_scene_naive(scene, o[sample], d[sample],
                                      pk[sample], pi[sample])
-    n_nv, ties_nv = differ(hit_bw, naive, sample)
+    n_nv, ties_nv = hits_differ(hit_bw, naive, sample)
     say(7, f"tilebw closest on {b} primaries: {n_mt} hits differ from "
            f"tilemt ({ties_mt} coincident-triangle ties); {n_nv} of 2048 "
            f"sampled differ from the naive oracle ({ties_nv} ties); "
@@ -601,6 +664,274 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
            f"PyTorch {cuda_ms(lambda: plain['tilebw'](*args), 3):.4f} ms "
            f"[{card}]")
     return records
+
+
+def event_ms(fn):
+    """ms of one call of fn() by CUDA events (no warm-up)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def pt_config(spp):
+    """bench.py --shader 2: the PathTracer at 512x512 over the block BVH,
+    nee_share=128, nee_share_secondary=True."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import constants as C
+    return mrt.RenderConfig(width=512, height=512, spp=spp,
+                            shader=C.SHADER_PATHTRACER, accelerator=C.ACC_BVH,
+                            nee_share=128, nee_share_secondary=True)
+
+
+def pathtracer_frame(scene, cam, key, spp):
+    """One pt_config(spp) frame timed by CUDA events, with the launch, loop
+    and walk counters reset just before.  Returns its ms, rays, image,
+    launches, refill loops and walk steps."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    from mobileraytracer_tpu_torch.shaders import engine
+    held = {}
+    K.reset_launches()
+    bt.LOOPS.update(refill=0, dense=0)
+    engine.WALK["steps"] = 0
+    ms = event_ms(lambda: held.update(
+        out=mrt.render_frame(scene, cam, pt_config(spp), key)))
+    return dict(spp=spp, ms=ms, rays=int(held["out"]["rays"]),
+                image=held["out"]["image"].cpu().numpy(),
+                launches=dict(K.LAUNCHES), loops=dict(bt.LOOPS),
+                steps=engine.WALK["steps"])
+
+
+def pathtracer_line(f):
+    img = f["image"]
+    return (f"512x512 PathTracer frame, {f['spp']} spp: {f['ms']:.3f} "
+            f"ms/frame by CUDA events, {f['rays']} rays, "
+            f"{f['rays'] / (f['ms'] / 1e3) / 1e6:.4f} M rays/s; walk steps "
+            f"{f['steps']}; refill loops {f['loops']}; launches "
+            f"{f['launches']}; image {img.shape} finite "
+            f"{np.isfinite(img).all()} mean {img.mean():.6f}")
+
+
+def frames_match(img, ref, rtol=0.0):
+    """(holds, max abs err, share of pixels within |img - ref| <= IMG_ATOL +
+    rtol |ref|): a frame holds when it is finite and IMG_FRACTION of its
+    pixels are within."""
+    err = np.abs(img - ref)
+    within = float((err <= IMG_ATOL + rtol * np.abs(ref)).all(-1).mean())
+    return (bool(np.isfinite(img).all()) and within >= IMG_FRACTION,
+            float(err.max()), within)
+
+
+def hits_differ(h, ref, sel=slice(None)):
+    """(hits of h[sel] whose primitive differs from ref's, how many of them
+    are coincident-triangle ties: both triangles at the same t)."""
+    from mobileraytracer_tpu_torch import constants as C
+    mism = torch.nonzero((h.prim_kind[sel] != ref.prim_kind)
+                         | (h.prim_id[sel] != ref.prim_id))[:, 0]
+    tri = C.PRIM_TRIANGLE
+    ties = int(((h.prim_kind[sel][mism] == tri)
+                & (ref.prim_kind[mism] == tri)
+                & (h.t[sel][mism] == ref.t[mism])).sum())
+    return len(mism), ties
+
+
+def shaders_phase(scene, cam, small, scam, key, card):
+    """Phase 8: the PathTracer, DepthMap and DiffuseMaterial shaders and the
+    regular grid and escape-index BVH.  Returns the kernels' launches in
+    the 512x512 PathTracer frame and their largest errors against their
+    plain versions on its batches."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import (bench_scenes, cameras, renderer,
+                                           scenes)
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.ops import bvh, grid
+    from mobileraytracer_tpu_torch.ops import intersect as nv
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    from mobileraytracer_tpu_torch.shaders import engine
+
+    dev = key.device
+    mp_obj = torch.from_numpy(scenes.DEPTHMAP_MAX_POINT[C.SCENE_OBJ])
+
+    # The three 64x64 goldens.
+    golden = np.load(GOLDEN_SHADERS)
+    cornell2, c2cam = scenes.load_builtin(C.SCENE_CORNELL2, 1.0)
+    cases = {
+        "pathtracer": (bt.build(cornell2, device=dev), c2cam,
+                       dict(shader=C.SHADER_PATHTRACER, spp=2, nee_share=128,
+                            nee_share_secondary=True), None, PT_RTOL),
+        "depthmap": (small, scam, dict(shader=C.SHADER_DEPTHMAP), mp_obj,
+                     0.0),
+        "diffuse": (small, scam, dict(shader=C.SHADER_DIFFUSE), None, 0.0),
+    }
+    for name, (sc, cm, kw, mp, rtol) in cases.items():
+        cfg = mrt.RenderConfig(width=64, height=64, accelerator=C.ACC_BVH,
+                               **kw)
+        out = mrt.render_frame(sc, cm, cfg, key, mp)
+        ok, err, within = frames_match(out["image"].cpu().numpy(),
+                                       golden[name], rtol)
+        rays, want = int(out["rays"]), int(golden[name + "_rays"])
+        say(8, f"64x64 {name} frame vs JAX golden: max abs err {err:.3e}, "
+               f"{within:.6f} of pixels within {IMG_ATOL} + {rtol} |golden|;"
+               f" rays {rays} (JAX: {want})")
+        if not ok or rays != want:
+            raise AssertionError(f"64x64 {name} frame disagrees with the JAX "
+                                 f"golden")
+
+    # The 512x512 PathTracer frame (bench.py --shader 2 --spp 16).  The
+    # 1-spp warm-up records the kernels' largest batches of each kind: the
+    # primary step's, and the bounce chunks' incoherent closest-hit and
+    # shadow passes and their refill loops.
+    captured = {}
+    stage = {"refill": False}
+    refill = bt._refill_exact
+
+    def in_refill(*args):
+        stage["refill"] = True
+        try:
+            return refill(*args)
+        finally:
+            stage["refill"] = False
+
+    def tag(kind, any_hit):
+        return kind, (f"PathTracer "
+                      f"{'primary step' if engine.WALK['steps'] == 0 else 'bounce chunk'}"
+                      f" {'refill' if stage['refill'] else 'pass'} "
+                      f"({'any-hit' if any_hit else 'closest'})")
+
+    engine.WALK["steps"] = 0
+    restore = recording(captured, tag)
+    bt._refill_exact = in_refill
+    t0 = time.perf_counter()
+    try:
+        mrt.render_frame(scene, cam, pt_config(1), key)
+        torch.cuda.synchronize()
+    finally:
+        bt._refill_exact = refill
+        restore()
+    warm_s = time.perf_counter() - t0
+    pt_err, _, _ = check_batches(8, captured)
+    sample_ms = pathtracer_frame(scene, cam, key, 1)["ms"]
+    spp = PT_SPP if PT_SPP * sample_ms <= PT_FRAME_S * 1e3 else PT_SPP_CUT
+    f = pathtracer_frame(scene, cam, key, spp)
+    launches = f["launches"]
+    cut = ("" if spp == PT_SPP else
+           f" (cut from {PT_SPP}: one sample took {sample_ms:.1f} ms, so "
+           f"{PT_SPP} would take over {PT_FRAME_S:.0f} s)")
+    say(8, f"{pathtracer_line(f)}{cut}; 1-spp warm-up {warm_s:.2f} s, one "
+           f"1-spp frame {sample_ms:.3f} ms [{card}]")
+    img = f["image"]
+    if not (np.isfinite(img).all() and img.shape == (512, 512, 3)
+            and f["rays"] > 0
+            and all(launches[k] > 0 for k in ("tilemt", "banded"))):
+        raise AssertionError("the PathTracer frame failed its checks")
+    busy, events, top, ops = profile_device(
+        lambda: mrt.render_frame(scene, cam, pt_config(1), key))
+    say(8, f"one 1-spp PathTracer frame under torch.profiler: device busy "
+           f"{busy:.3f} ms over {events} device events, of {sample_ms:.3f}"
+           f" ms, idle share {1.0 - busy / sample_ms:.3f}; largest device "
+           f"rows (ms, events):"
+           + "; ".join(f" {k[:60]} {ms:.3f} ({n})"
+                       for k, (ms, n) in top.items())
+           + "; host operators by their own kernels' device time (ms, "
+             "calls):" + "; ".join(f" {k} {ms:.3f} ({n})"
+                                   for k, (ms, n) in ops.items())
+           + f" [{card}]")
+
+    # DepthMap and DiffuseMaterial at 512x512: one banded closest pass.
+    for shader, mp in ((C.SHADER_DEPTHMAP, mp_obj), (C.SHADER_DIFFUSE, None)):
+        cfgs = mrt.RenderConfig(width=512, height=512, shader=shader,
+                                accelerator=C.ACC_BVH)
+        mrt.render_frame(scene, cam, cfgs, key, mp)
+        K.reset_launches()
+        out = mrt.render_frame(scene, cam, cfgs, key, mp)
+        torch.cuda.synchronize()
+        sl = dict(K.LAUNCHES)
+        ms = cuda_ms(lambda: mrt.render_frame(scene, cam, cfgs, key, mp), 3)
+        simg = out["image"].cpu().numpy()
+        say(8, f"512x512 shader {shader} frame: {ms:.3f} ms/frame (mean of 3"
+               f" by CUDA events), rays {int(out['rays'])}, launches {sl}, "
+               f"image finite {np.isfinite(simg).all()} mean "
+               f"{simg.mean():.6f} [{card}]")
+        if not (np.isfinite(simg).all()
+                and int(out["rays"]) == cfgs.width * cfgs.height
+                and sl["banded"] > 0):
+            raise AssertionError(f"the shader {shader} frame failed")
+
+    # The regular grid and the escape-index BVH.
+    proxy, pcam, _ = bench_scenes.conference_proxy(target_prims=20000)
+    t0 = time.perf_counter()
+    gscene = grid.build_grid(proxy, device=dev)
+    g_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tscene = bvh.build(proxy, device=dev)
+    t_s = time.perf_counter() - t0
+    say(8, f"20k proxy: grid built in {g_s:.2f} s ({gscene.bvh.size}^3 "
+           f"cells, {gscene.bvh.item_id.numel()} items), escape-index BVH "
+           f"in {t_s:.2f} s ({tscene.bvh.node_min.shape[0]} nodes)")
+    u, v, _, _ = renderer._pixel_order(mrt.RenderConfig(width=512,
+                                                        height=512), dev)
+    zero = torch.zeros_like(u)
+    o, d = cameras.generate_rays(pcam.to(dev), u, v, zero, zero)
+    sample = torch.randperm(o.shape[0], generator=torch.Generator(
+    ).manual_seed(0))[:2048].to(dev)
+    o, d = o[sample], d[sample]
+    pk = torch.zeros(2048, dtype=torch.int32, device=dev)
+    pi = torch.full((2048,), -1, dtype=torch.int32, device=dev)
+    for name, sc, fn in (("grid", gscene, grid.intersect_scene_grid),
+                         ("escape-index BVH", tscene,
+                          bvh.intersect_scene_bvh)):
+        t0 = time.perf_counter()
+        h = fn(sc, o, d, pk, pi)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n, ties = hits_differ(h, nv.intersect_scene_naive(sc, o, d, pk, pi))
+        say(8, f"{name} on 2048 sampled primaries of the 20k proxy: {n} hits"
+               f" differ from the naive oracle, {ties} of them "
+               f"coincident-triangle ties; {int((~h.missed).sum())} hit; "
+               f"{ms:.1f} ms by the host clock [{card}]")
+        if n != ties:
+            raise AssertionError(f"{name} hits disagree with the naive oracle")
+
+    # The reference's render matrix at 32x32 on cornell: each shader over
+    # each accelerator against its ACC_NAIVE frame.
+    cornell, ccam = scenes.load_builtin(C.SCENE_CORNELL, 1.0)
+    mp_c = torch.from_numpy(scenes.DEPTHMAP_MAX_POINT[C.SCENE_CORNELL])
+    builds = {"naive": (C.ACC_NAIVE, cornell.to(dev)),
+              "grid": (C.ACC_REGULAR_GRID, grid.build_grid(cornell,
+                                                           device=dev)),
+              "BVH tree": (C.ACC_BVH, bvh.build(cornell, device=dev)),
+              "BVH blocks": (C.ACC_BVH, bt.build(cornell, device=dev))}
+    for shader in (C.SHADER_NOSHADOWS, C.SHADER_WHITTED, C.SHADER_PATHTRACER,
+                   C.SHADER_DEPTHMAP, C.SHADER_DIFFUSE):
+        row = {}
+        for label, (acc, sc) in builds.items():
+            cfgm = mrt.RenderConfig(width=32, height=32, shader=shader,
+                                    accelerator=acc, nee_share=128,
+                                    nee_share_secondary=True)
+            t0 = time.perf_counter()
+            out = mrt.render_frame(sc, ccam, cfgm, key, mp_c)
+            row[label] = (out["image"].cpu().numpy(), int(out["rays"]),
+                          time.perf_counter() - t0)
+        ref, ref_rays, _ = row["naive"]
+        rtol = PT_RTOL if shader == C.SHADER_PATHTRACER else 0.0
+        held = {label: frames_match(img, ref, rtol) + (rays == ref_rays,)
+                for label, (img, rays, _) in row.items() if label != "naive"}
+        say(8, f"32x32 cornell, shader {shader}: naive {ref_rays} rays, "
+               f"{row['naive'][2]:.2f} s; "
+           + "; ".join(f"{label} holds {ok and same} (max abs err {err:.2e},"
+                       f" rays equal {same}, {row[label][2]:.2f} s)"
+                       for label, (ok, err, _, same) in held.items()))
+        if not all(ok and same for ok, _, _, same in held.values()):
+            raise AssertionError(f"shader {shader}: an accelerator's frame "
+                                 f"disagrees with the naive scan's")
+    return launches, pt_err
 
 
 if __name__ == "__main__":

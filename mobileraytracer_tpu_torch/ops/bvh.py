@@ -1,11 +1,15 @@
-"""Host-side SAH BVH build (port of the build half of
-`mobileraytracer_tpu/ops/bvh.py`; reference BVH.hpp:161-283, 398-439).
+"""SAH BVH: the host-side build and the escape-index walk (port of
+`mobileraytracer_tpu/ops/bvh.py`; reference BVH.hpp:161-283, 327-384,
+398-439).
 
-The same numpy code as the JAX package, so the node tables and the
-triangle permutation are bit-equal.  The block traversal
-(ops/block_traversal.py) cuts this tree at 128-triangle leaves.  The
-escape-index walk over the tree is not ported yet (ROADMAP Queue 1,
-item 11).
+The build is the same numpy code as the JAX package, so the node tables
+and the triangle permutation are bit-equal.  The block traversal
+(ops/block_traversal.py) cuts this tree at 128-triangle leaves; `build`
+attaches the tree itself, which the escape-index walk traverses: each
+ray's cursor moves to the next node in preorder when it enters a box and
+to the node's escape index when it misses, one node per step for the
+whole batch, in a Python loop until every cursor is past the last node.
+The JAX package computes the walk outside any kernel too.
 """
 from __future__ import annotations
 
@@ -15,9 +19,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..types import Triangles
+from .. import constants as C
+from ..types import Hit, Scene, TensorData, Triangles, entry_device
+from . import intersect as nv
 
 LEAF_SIZE = 4
+_BIG = C.RAY_LENGTH_MAX
 
 
 def _np(a) -> np.ndarray:
@@ -27,9 +34,10 @@ def _np(a) -> np.ndarray:
 
 
 @dataclasses.dataclass
-class BVHNodes:
-    """Flat DFS-preorder node table (numpy); leaves cover the contiguous
-    triangle range [node_first, node_first + node_count)."""
+class BVHNodes(TensorData):
+    """Flat DFS-preorder node table; leaves cover the contiguous triangle
+    range [node_first, node_first + node_count).  numpy from
+    `build_triangle_bvh`, tensors once `build` attaches it to a scene."""
     node_min: np.ndarray     # (K, 3) f32
     node_max: np.ndarray     # (K, 3) f32
     node_first: np.ndarray   # (K,) i32
@@ -188,3 +196,136 @@ def build_triangle_bvh(tris: Triangles,
               node_skip=node_skip,
               node_count=node_count)
     return tris2, bvh
+
+
+def build(scene: Scene, device=None) -> Scene:
+    """Attaches the triangle BVH to the scene (reordering its triangles)
+    and moves the scene to `device`: the CUDA card unless another is named
+    (types.entry_device).  Spheres and planes stay on the naive scans."""
+    device = entry_device(device)
+    tris2, nodes = build_triangle_bvh(scene.triangles.to("cpu"))
+    nodes = BVHNodes(**{f.name: torch.from_numpy(getattr(nodes, f.name))
+                        for f in dataclasses.fields(nodes)})
+    return scene.replace(triangles=tris2, bvh=nodes).to(device)
+
+
+# ---------------------------------------------------------------------------
+# The escape-index walk.
+# ---------------------------------------------------------------------------
+
+def _slab_test(o, inv_d, bmin, bmax, t_best):
+    """Ray/AABB slab test (reference AABB.cpp:34-54): the box is hit
+    closer than t_best."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    tnear = torch.minimum(t0, t1).amax(-1)
+    tfar = torch.maximum(t0, t1).amin(-1)
+    return (tnear <= tfar) & (tfar >= 0.0) & (tnear < t_best)
+
+
+def _leaf_tests(bvh: BVHNodes, tris: Triangles, o, d, cur, hit_box, t_lim,
+                guard, prev_id):
+    """Moller-Trumbore of each ray against the up to LEAF_SIZE triangles of
+    its node, where the node is a leaf whose box it hit.  Returns (t (B, L),
+    slot (B, L)) with misses, excluded and invalid lanes at _BIG."""
+    cnt = bvh.node_count[cur]
+    lane = torch.arange(LEAF_SIZE, device=o.device)
+    slot = torch.clamp(bvh.node_first[cur][:, None] + lane[None, :],
+                       max=tris.capacity - 1)
+    s = slot.long()
+    t, ok = nv._mt_components(o[:, None, :], d[:, None, :], tris.point_a[s],
+                              tris.ab[s], tris.ac[s])
+    ok = (ok & (lane[None, :] < cnt[:, None]) & ((cnt > 0) & hit_box)[:, None]
+          & tris.valid[s] & (t < t_lim[:, None])
+          & ~(guard[:, None] & (slot == prev_id[:, None])))
+    return torch.where(ok, t, _BIG), slot
+
+
+def _advance(bvh: BVHNodes, cursor, cur, hit_box, active):
+    nxt = torch.where(hit_box & (bvh.node_count[cur] == 0), cursor + 1,
+                      bvh.node_skip[cur])
+    return torch.where(active, nxt, cursor)
+
+
+def traverse_closest(bvh: BVHNodes, tris: Triangles, o, d, t_max, prev_kind,
+                     prev_id):
+    """Closest triangle per ray below `t_max`: (t, slot), slot -1 where
+    none; slots index the reordered triangles."""
+    b = o.shape[0]
+    k = bvh.node_min.shape[0]
+    inv_d = nv._inv_dir(d)
+    guard = prev_kind == C.PRIM_TRIANGLE
+    cursor = torch.zeros(b, dtype=torch.int32, device=o.device)
+    t_best = nv._t_max(t_max, o).clone()
+    best_id = torch.full((b,), -1, dtype=torch.int32, device=o.device)
+    while bool((cursor < k).any()):
+        cur = torch.clamp(cursor, max=k - 1).long()
+        active = cursor < k
+        hit_box = _slab_test(o, inv_d, bvh.node_min[cur], bvh.node_max[cur],
+                             t_best) & active
+        t, slot = _leaf_tests(bvh, tris, o, d, cur, hit_box, t_best, guard,
+                              prev_id)
+        arg = torch.argmin(t, dim=1, keepdim=True)     # first minimum
+        tmin = torch.gather(t, 1, arg)[:, 0]
+        closer = tmin < t_best
+        t_best = torch.where(closer, tmin, t_best)
+        best_id = torch.where(closer, torch.gather(slot, 1, arg)[:, 0],
+                              best_id)
+        cursor = _advance(bvh, cursor, cur, hit_box, active)
+    return t_best, best_id
+
+
+def traverse_any(bvh: BVHNodes, tris: Triangles, o, d, max_dist, prev_kind,
+                 prev_id):
+    """Whether any triangle lies below `max_dist`, each ray stopping at its
+    first."""
+    b = o.shape[0]
+    k = bvh.node_min.shape[0]
+    inv_d = nv._inv_dir(d)
+    guard = prev_kind == C.PRIM_TRIANGLE
+    md = nv._t_max(max_dist, o)
+    cursor = torch.zeros(b, dtype=torch.int32, device=o.device)
+    found = torch.zeros(b, dtype=torch.bool, device=o.device)
+    while bool(((cursor < k) & ~found).any()):
+        cur = torch.clamp(cursor, max=k - 1).long()
+        active = (cursor < k) & ~found
+        hit_box = _slab_test(o, inv_d, bvh.node_min[cur], bvh.node_max[cur],
+                             md) & active
+        t, _ = _leaf_tests(bvh, tris, o, d, cur, hit_box, md, guard, prev_id)
+        found = found | (t < _BIG).any(1)
+        cursor = _advance(bvh, cursor, cur, hit_box, active)
+    return found
+
+
+def intersect_scene_bvh(scene: Scene, o, d, prev_kind, prev_id,
+                        t_max=_BIG) -> Hit:
+    """Closest hit: planes, spheres and area lights by the naive scans,
+    triangles by the escape-index walk."""
+    if not isinstance(scene.bvh, BVHNodes):
+        raise ValueError("call ops.bvh.build first")
+    tm = nv._t_max(t_max, o)
+    t_pl, id_pl = nv.closest_planes(scene.planes, o, d, tm, prev_kind,
+                                    prev_id)
+    t_sp, id_sp = nv.closest_spheres(scene.spheres, o, d, tm, prev_kind,
+                                     prev_id)
+    t_tr, id_tr = traverse_closest(scene.bvh, scene.triangles, o, d, tm,
+                                   prev_kind, prev_id)
+    t_tr = torch.where(id_tr >= 0, t_tr, _BIG)
+    t_li, id_li = nv.closest_lights(scene.lights, o, d, tm, prev_kind,
+                                    prev_id)
+    return nv._fill_hit(scene, o, d, t_pl, id_pl, t_sp, id_sp, t_tr, id_tr,
+                        t_li, id_li)
+
+
+def occluded_bvh(scene: Scene, o, d, max_dist, prev_kind, prev_id):
+    """Shadow query: the escape-index any-hit walk, and the naive scans of
+    planes and spheres (the ray's own sphere excluded)."""
+    if not isinstance(scene.bvh, BVHNodes):
+        raise ValueError("call ops.bvh.build first")
+    md = nv._t_max(max_dist, o)
+    t_pl, _ = nv.closest_planes(scene.planes, o, d, md, prev_kind, prev_id)
+    t_sp, _ = nv.closest_spheres(scene.spheres, o, d, md, prev_kind, prev_id,
+                                 exclude_prev=True)
+    blocked = traverse_any(scene.bvh, scene.triangles, o, d, md, prev_kind,
+                           prev_id)
+    return blocked | (t_pl < md) | (t_sp < md)

@@ -371,6 +371,12 @@ def recompute_tri_t(tris: Triangles, o, d, tid):
     return torch.where((tid >= 0) & ok, t, _BIG)
 
 
+def _inv_dir(d):
+    """1 / d with components below 1e-30 in magnitude taken as +-1e-30."""
+    tiny = torch.where(d < 0, -1e-30, 1e-30)
+    return 1.0 / torch.where(torch.abs(d) < 1e-30, tiny, d)
+
+
 def _t_max(t_max, o):
     return torch.as_tensor(t_max, dtype=torch.float32,
                            device=o.device).expand(o.shape[0])

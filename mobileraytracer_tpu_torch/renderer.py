@@ -14,7 +14,7 @@ import torch
 from . import constants as C
 from . import film, sampling
 from .cameras import generate_rays
-from .ops import block_traversal
+from .ops import block_traversal, grid
 from .shaders.engine import trace_image_sample
 from .types import Camera, RenderConfig, Scene, entry_device
 
@@ -39,8 +39,9 @@ def _pixel_order(config: RenderConfig, device=None):
 
 def sample_pixels(scene: Scene, camera: Camera, config: RenderConfig,
                   base_key: torch.Tensor, sample_idx: int, u, v, pixel_ids,
-                  differentiable: bool = False):
-    """Traces one sample of a pixel subset; returns (rgb (B, 3), rays)."""
+                  max_point=None, differentiable: bool = False):
+    """Traces one sample of a pixel subset; returns (rgb (B, 3), rays).
+    `max_point` is DepthMap's far point ((1, 1, 1) when None)."""
     if differentiable:
         raise NotImplementedError(
             "differentiable rendering is not ported yet (ROADMAP.md Queue 1,"
@@ -62,20 +63,21 @@ def sample_pixels(scene: Scene, camera: Camera, config: RenderConfig,
         dev_u = torch.zeros_like(u)
         dev_v = torch.zeros_like(v)
     o, d = generate_rays(camera, u, v, dev_u, dev_v)
-    return trace_image_sample(scene, config, o, d, keys)
+    return trace_image_sample(scene, config, o, d, keys, max_point)
 
 
 def render_sample(scene: Scene, camera: Camera, config: RenderConfig,
-                  base_key: torch.Tensor, sample_idx: int,
+                  base_key: torch.Tensor, sample_idx: int, max_point=None,
                   differentiable: bool = False):
     """One sample of every pixel in lane order; returns (rgb, rays)."""
     u, v, pixel_ids, _ = _pixel_order(config, scene.device)
     return sample_pixels(scene, camera, config, base_key, sample_idx, u, v,
-                         pixel_ids, differentiable=differentiable)
+                         pixel_ids, max_point=max_point,
+                         differentiable=differentiable)
 
 
 def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
-                 base_key: torch.Tensor):
+                 base_key: torch.Tensor, max_point=None):
     """Full frame at `config.spp` samples, on the scene's device.  Returns
     {"image": (H, W, 3) f32, "bitmap": (H, W) int32 ABGR, "rays": () int32
     total casted rays}."""
@@ -91,7 +93,8 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
     accum = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
     rays = torch.zeros((), dtype=torch.int32, device=dev)
     for s in range(config.spp):
-        rgb, r = render_sample(scene, camera, config, base_key, s)
+        rgb, r = render_sample(scene, camera, config, base_key, s,
+                               max_point)
         accum = film.incremental_avg_float(accum, rgb, s + 1)
         rays = rays + r
     image = accum[inv.long()]
@@ -105,17 +108,21 @@ class Renderer:
     exposes the running image, bitmap and casted-ray total.  It runs on
     the CUDA card unless `device` names another (see types.entry_device:
     without a card it raises); on the CPU the traversal runs the kernels'
-    plain versions.  With ACC_BVH the block grid is built on
-    construction."""
+    plain versions.  With ACC_BVH the block grid, and with
+    ACC_REGULAR_GRID the cell grid, is built on construction.
+    `max_point` is DepthMap's far point ((1, 1, 1) when None)."""
 
     def __init__(self, scene: Scene, camera: Camera, config: RenderConfig,
-                 device=None):
+                 max_point=None, device=None):
         device = entry_device(device)
         if config.accelerator == C.ACC_BVH and scene.bvh is None:
             scene = block_traversal.build(scene, device=device)
+        elif config.accelerator == C.ACC_REGULAR_GRID and scene.bvh is None:
+            scene = grid.build_grid(scene, device=device)
         self.scene = scene.to(device)
         self.camera = camera.to(device)
         self.config = config.rounded()
+        self.max_point = max_point
         self.sample = 0
         self.total_rays = 0
         w, h = self.config.width, self.config.height
@@ -140,7 +147,7 @@ class Renderer:
         """Runs the remaining samples; returns the image."""
         while self.sample < self.config.spp:
             rgb, rays = render_sample(self.scene, self.camera, self.config,
-                                      self._key, self.sample)
+                                      self._key, self.sample, self.max_point)
             self._accum = film.incremental_avg_float(self._accum, rgb,
                                                      self.sample + 1)
             self.sample += 1

@@ -1,5 +1,6 @@
 """The four CUDA traversal kernels against their plain PyTorch versions,
-on the card.  Imports neither jax nor the JAX package (nor does
+on the card, and frames of the PathTracer and of the grid and escape-index
+BVH on the card.  Imports neither jax nor the JAX package (nor does
 test_torch_kernel_design, whose hand-made blocks it uses), so it runs on a
 machine with PyTorch for CUDA alone:
 
@@ -14,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from mobileraytracer_tpu_torch import bench_scenes, cameras
+from mobileraytracer_tpu_torch import bench_scenes, cameras, sampling, scenes
 from mobileraytracer_tpu_torch import constants as C
 from mobileraytracer_tpu_torch import renderer
 from mobileraytracer_tpu_torch.ops import block_traversal as bt
+from mobileraytracer_tpu_torch.ops import bvh, grid
 from mobileraytracer_tpu_torch.ops import kernels as K
 from mobileraytracer_tpu_torch.types import RenderConfig, Triangles
 from test_torch_kernel_design import bw_blocks, bw_rays
@@ -390,3 +392,59 @@ def test_resident_kernel_equals_plain_across_partitions():
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert bool((got[0] < rays[:, 6]).any())
+
+
+# ---------------------------------------------------------------------------
+# The PathTracer and the other accelerators on the card.
+# ---------------------------------------------------------------------------
+
+SHADERS_GOLDEN = (pathlib.Path(__file__).parent / "data"
+                  / "torch_port_golden_shaders64.npz")
+# As in test_torch_pathtracer.py (which imports jax): a pixel holds when
+# |port - golden| <= 1e-4 + 1e-3 |golden|, and 99.9% of pixels hold.
+PT_ATOL, PT_RTOL, PT_FRACTION = 1e-4, 1e-3, 0.999
+
+
+def _pt_match(img, ref):
+    assert np.isfinite(img).all()
+    ok = (np.abs(img - ref) <= PT_ATOL + PT_RTOL * np.abs(ref)).all(-1)
+    assert ok.mean() >= PT_FRACTION, np.abs(img - ref).max()
+
+
+@pytest.mark.cuda
+def test_pathtracer_golden_on_the_card():
+    dev = _need_cuda()
+    ts, tc = scenes.load_builtin(C.SCENE_CORNELL2, 1.0)
+    cfg = RenderConfig(width=64, height=64, spp=2,
+                       shader=C.SHADER_PATHTRACER, accelerator=C.ACC_BVH,
+                       nee_share=128, nee_share_secondary=True)
+    K.reset_launches()
+    out = renderer.render_frame(bt.build(ts, device=dev), tc.to(dev), cfg,
+                                sampling.prng_key(0, dev))
+    assert K.LAUNCHES["tilemt"] > 0 and K.LAUNCHES["banded"] > 0
+    golden = np.load(SHADERS_GOLDEN)
+    assert int(out["rays"]) == int(golden["pathtracer_rays"])
+    _pt_match(out["image"].cpu().numpy(), golden["pathtracer"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shader", [C.SHADER_WHITTED, C.SHADER_PATHTRACER,
+                                    C.SHADER_DEPTHMAP])
+def test_grid_and_escape_bvh_frames_on_the_card(shader):
+    dev = _need_cuda()
+    ts, tc = scenes.load_builtin(C.SCENE_CORNELL, 1.0)
+    mp = torch.from_numpy(scenes.DEPTHMAP_MAX_POINT[C.SCENE_CORNELL])
+    frames = {}
+    for acc, scene in ((C.ACC_NAIVE, ts.to(dev)),
+                       (C.ACC_REGULAR_GRID, grid.build_grid(ts, device=dev)),
+                       (C.ACC_BVH, bvh.build(ts, device=dev))):
+        cfg = RenderConfig(width=32, height=32, shader=shader,
+                           accelerator=acc, nee_share=128,
+                           nee_share_secondary=True)
+        out = renderer.render_frame(scene, tc.to(dev), cfg,
+                                    sampling.prng_key(0, dev), mp)
+        frames[acc] = (out["image"].cpu().numpy(), int(out["rays"]))
+    ref, rays = frames[C.ACC_NAIVE]
+    for acc in (C.ACC_REGULAR_GRID, C.ACC_BVH):
+        assert frames[acc][1] == rays
+        _pt_match(frames[acc][0], ref)
