@@ -63,10 +63,28 @@ raises and the script exits nonzero):
      escape-index tree and the block BVH at 32x32 on cornell, each frame
      against the naive scan's.  Each kernel's record gains its launches in
      the PathTracer frame.
+  9. the user's way in: the conference proxy written to OBJ+MTL by
+     loaders.obj.save_obj_scene and loaded back through the native parser
+     (parse and fill seconds); the 512x512 Whitted frame of phase 4
+     through Renderer on the loaded scene, whose rays and image must equal
+     phase 4's bit for bit; the command line (cli.main) on that OBJ at
+     512x512, 1 spp, --acc 3, with the launch counters reset just before:
+     tile-MT and banded launched, every batch they were given held bitwise
+     against the plain versions, the frame bitwise equal to the same
+     command line run with the plain versions in the kernels' place, and
+     its metrics line; the eight analytic
+     refgold captures of the C++ reference at 256x256 (int_parity,
+     ACC_NAIVE) within test_golden.py's tolerance; render_async stopped
+     by a poller (STOPPED, every polled bitmap a whole frame) and a
+     checkpoint resume bitwise equal to an uninterrupted render; and the
+     eight pixel samplers' and the Halton sequence's draws on the card,
+     bitwise equal to the CPU's.  Each kernel's record gains its launches
+     in the command line's frame.
 The script's seconds, the card's name and power limit and then the
 kernels' JSON record come just before the last line, {"ok": true,
 "device": {...}}.
 """
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -488,7 +506,13 @@ def main():
         rec["launches_pathtracer"] = pt_launches[kind]
         rec["max_abs_err"] = max(rec["max_abs_err"], pt_err.get(kind, 0.0))
 
-    say(8, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    # -- 9 ------------------------------------------------------------------
+    cli_launches = loaders_phase(cam, key, cfg, img, rays, card)
+    for rec in records:
+        kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
+        rec["launches_cli"] = cli_launches[kind]
+
+    say(9, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -932,6 +956,235 @@ def shaders_phase(scene, cam, small, scam, key, card):
             raise AssertionError(f"shader {shader}: an accelerator's frame "
                                  f"disagrees with the naive scan's")
     return launches, pt_err
+
+
+# test_golden.py's oracle for the deterministic captures (:55-64): mean
+# |diff| below 1.5/255 and under 2% of pixels off by more than 4/255.
+GOLD = ROOT / "refgold" / "golden"
+CAPTURES = (("cornell_noshadows_256", 0, 0), ("cornell_whitted_256", 0, 1),
+            ("cornell_depthmap_256", 0, 3), ("cornell_diffuse_256", 0, 4),
+            ("spheres_whitted_256", 1, 1), ("spheres2_whitted_256", 3, 1),
+            ("cornell2_depthmap_256", 2, 3), ("cornell2_diffuse_256", 2, 4))
+
+
+def unpack_bitmap(bitmap):
+    bm = np.asarray(bitmap).astype(np.int64)
+    return np.stack([(bm >> s) & 0xFF for s in (0, 8, 16)],
+                    -1).astype(np.float32) / 255.0
+
+
+def golden_close(ours, ref, mean_tol=1.5 / 255, outlier_tol=4.0 / 255,
+                 outlier_frac=0.02):
+    """(holds, mean |diff|, share of pixels off by more than outlier_tol)."""
+    diff = np.abs(ours - ref)
+    mean = float(diff.mean())
+    frac = float((diff.max(axis=-1) > outlier_tol).mean())
+    return mean < mean_tol and frac < outlier_frac, mean, frac
+
+
+def loaders_phase(cam, key, cfg, img4, rays4, card):
+    """Phase 9: OBJ loading, Renderer, the command line, the refgold
+    captures, the lifecycle and the samplers on the card.  `cam`, `cfg`,
+    `img4` and `rays4` are phase 4's camera, config, image and rays.
+    Returns the kernels' launches in the command line's frame."""
+    import tempfile
+
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import (bench_scenes, cli, samplers,
+                                           sampling, scenes)
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.loaders import native
+    from mobileraytracer_tpu_torch.loaders.obj import (load_obj_scene_ex,
+                                                       save_obj_scene)
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    from mobileraytracer_tpu_torch.renderer import STATE_STOPPED
+
+    dev = key.device
+    size = cfg.width
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = pathlib.Path(tmp)
+        proxy, _, _ = bench_scenes.conference_proxy()
+        t0 = time.perf_counter()
+        written = save_obj_scene(proxy, str(tmp / "conference_proxy.obj"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if native.library() is None:
+            raise AssertionError("the native OBJ parser did not build/load")
+        build_s = time.perf_counter() - t0
+        scene, info = load_obj_scene_ex(str(tmp / "conference_proxy.obj"))
+        say(9, f"conference proxy to OBJ+MTL in {save_s:.2f} s "
+               f"({written['obj_bytes']} bytes, {written['vertices']} "
+               f"vertices); native parser ready in {build_s:.2f} s; loaded "
+               f"{info['triangles']} triangles, {info['lights']} lights, "
+               f"{info['materials']} materials: parse "
+               f"{info['parse_seconds']:.4f} s, fill "
+               f"{info['fill_seconds']:.4f} s [{card}]")
+        if (info["triangles"], info["lights"]) != (331179, 2):
+            raise AssertionError(f"OBJ load: {info}")
+
+        # The loaded arrays are the procedural ones, so phase 4's frame.
+        t0 = time.perf_counter()
+        r = mrt.Renderer(scene, cam, cfg)
+        build_s = time.perf_counter() - t0
+        img = r.render()
+        same = np.array_equal(img, img4) and r.total_rays == rays4
+        say(9, f"{size}x{size} Whitted frame of the loaded OBJ through Renderer "
+               f"(block grid built in {build_s:.2f} s): rays "
+               f"{r.total_rays} (phase 4: {rays4}), image mean "
+               f"{img.mean():.6f}; bitwise equal to phase 4's frame: {same}")
+        if not same:
+            raise AssertionError("the OBJ frame differs from phase 4's")
+        bscene = r.scene
+
+        # The command line on the OBJ, with phase 4's camera as a .cam.
+        # Every kernel batch of its frame is kept, and the frame itself is
+        # held against the same command line run with the plain versions
+        # in the kernels' place.
+        (tmp / "conference_proxy.cam").write_text(bench_scenes._FALLBACK_CAM)
+        argv = ["--scene", str(C.SCENE_OBJ), "--obj",
+                str(tmp / "conference_proxy.obj"), "--cam",
+                str(tmp / "conference_proxy.cam"), "--shader", "1", "--spp",
+                "1", "--width", str(size), "--height", str(size), "--acc",
+                "3", "--quiet", "--metrics-jsonl"]
+        images = []
+        render = mrt.Renderer.render
+
+        def keep(self, *a, **kw):
+            images.append(render(self, *a, **kw))
+            return images[-1]
+
+        captured, count = {}, [0]
+
+        def tag(kind, any_hit):
+            count[0] += 1
+            return kind, (f"cli launch {count[0]} "
+                          f"({'any-hit' if any_hit else 'closest'})")
+
+        mrt.Renderer.render = keep
+        K.reset_launches()
+        restore = recording(captured, tag)
+        try:
+            code = cli.main(argv + [str(tmp / "metrics.jsonl")])
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            restore()
+            K.traverse_tilemt, K.traverse_banded = (K.tilemt_plain,
+                                                    K.banded_plain)
+            plain_code = cli.main(argv + [str(tmp / "plain.jsonl")])
+            torch.cuda.synchronize()
+        finally:
+            restore()
+            mrt.Renderer.render = render
+        line = (tmp / "metrics.jsonl").read_text().strip().splitlines()[-1]
+        m = json.loads(line)
+        plain_m = json.loads(
+            (tmp / "plain.jsonl").read_text().strip().splitlines()[-1])
+    say(9, f"cli.main on the OBJ, {size}x{size}, 1 spp, --acc 3: exit {code}, "
+           f"launches {launches}, {m['render_seconds'] * 1e3:.3f} ms/frame, "
+           f"{m['rays_per_second'] / 1e6:.4f} M rays/s [{card}]")
+    say(9, f"metrics line: {line}")
+    check_batches(9, captured)
+    same = (plain_code == 0 and m["total_rays"] == plain_m["total_rays"]
+            and len(images) == 2 and np.array_equal(images[0], images[1]))
+    say(9, f"cli.main frame: shape {images[0].shape}, finite "
+           f"{bool(np.isfinite(images[0]).all())}, mean "
+           f"{images[0].mean():.6f}; with the plain versions: exit "
+           f"{plain_code}, rays {plain_m['total_rays']}; bitwise equal: "
+           f"{same}")
+    if not (code == 0 and m["rays_per_second"] > 0
+            and m["total_rays"] >= size * size and same
+            and np.isfinite(images[0]).all()
+            and sum(a[3].shape[0] > 0 for a in captured.values())
+            == sum(launches.values())
+            and all(launches[k] > 0 for k in ("tilemt", "banded"))):
+        raise AssertionError("the command line's run failed its checks")
+
+    # The eight analytic captures of the C++ reference.
+    held = []
+    for name, sid, shader in CAPTURES:
+        raw = np.fromfile(GOLD / f"{name}.bin", dtype=np.int32)
+        w, h = int(raw[0]), int(raw[1])
+        ref = unpack_bitmap(raw[2:].reshape(h, w))
+        sc, cm = scenes.load_builtin(sid, 1.0)
+        cfg_g = mrt.RenderConfig(width=w, height=h, shader=shader,
+                                 accelerator=C.ACC_NAIVE, scene_id=sid,
+                                 accumulation="int_parity")
+        out = mrt.render_frame(sc.to(dev), cm, cfg_g, sampling.prng_key(0),
+                               scenes.DEPTHMAP_MAX_POINT[sid])
+        held.append((name,) + golden_close(unpack_bitmap(
+            out["bitmap"].cpu().numpy()), ref))
+    say(9, "refgold captures at 256x256 (int_parity, ACC_NAIVE) vs the C++ "
+           "reference: " + "; ".join(
+               f"{n} holds {ok} (mean {mean * 255:.3f}/255, outliers "
+               f"{frac:.4f})" for n, ok, mean, frac in held))
+    if not all(ok for _, ok, _, _ in held):
+        raise AssertionError("a refgold capture disagrees")
+
+    # The lifecycle on the card: a checkpoint resume and an async stop.
+    lc = mrt.RenderConfig(width=size // 4, height=size // 4, spp=6,
+                          shader=C.SHADER_WHITTED, accelerator=C.ACC_BVH,
+                          nee_share=128, nee_share_secondary=True)
+    full = mrt.Renderer(bscene, cam, lc)
+    frames = [full.bitmap]
+    img_full = full.render(callback=lambda rr: frames.append(rr.bitmap))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(pathlib.Path(tmp) / "render.npz")
+        a = mrt.Renderer(bscene, cam, lc)
+        a.render(callback=lambda rr: rr.sample == 2 and rr.stop_render())
+        a.save_checkpoint(path)
+        b = mrt.Renderer(bscene, cam, lc)
+        b.load_checkpoint(path)
+        img_b = b.render()
+    resumed = (a.sample == 2 and np.array_equal(img_b, img_full)
+               and b.total_rays == full.total_rays)
+    c = mrt.Renderer(bscene, cam, dataclasses.replace(lc, spp=100000))
+    c.render_async()
+    polls = []
+    deadline = time.time() + 60
+    while c.sample < 2 and time.time() < deadline:
+        polls.append((c.sample, c.bitmap, c.sample))
+        time.sleep(0.002)
+    c.stop_render()
+    state = c.wait(60)
+    whole = all(any(np.array_equal(bm, f) for f in frames)
+                for s0, bm, s1 in polls if s1 < len(frames))
+    say(9, f"lifecycle on the card ({lc.width}x{lc.height} of the loaded "
+           f"OBJ): resumed at "
+           f"sample 2 from a checkpoint, bitwise equal to the uninterrupted "
+           f"{lc.spp}-spp render: {resumed}; render_async stopped by the "
+           f"poller after {c.sample} samples, state {state}, {len(polls)} "
+           f"polled bitmaps each a whole frame: {whole}; "
+           f"{c.stats_line()}")
+    if not (resumed and state == STATE_STOPPED and whole and c.sample >= 2):
+        raise AssertionError("the lifecycle failed its checks")
+
+    # The samplers' draws on the card against the CPU's.
+    pids = torch.arange(size * size, dtype=torch.int32)
+    k3 = sampling.prng_key(3)
+    diff = []
+    for name in samplers.SAMPLER_NAMES:
+        for s in (0, 5):
+            got = samplers.pixel_jitter(name, k3.to(dev), pids.to(dev), s,
+                                        size * size).cpu()
+            want = samplers.pixel_jitter(name, k3, pids, s, size * size)
+            if not torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)):
+                diff.append((name, s))
+    for base in (2, 3):
+        idx = torch.arange(1 << 20, dtype=torch.int64) * 4099
+        if not torch.equal(sampling.halton(idx.to(dev), base).cpu(),
+                           sampling.halton(idx, base)):
+            diff.append(("halton", base))
+    say(9, f"pixel_jitter of the {len(samplers.SAMPLER_NAMES)} samplers "
+           f"({size}x{size}, samples 0 and 5) and halton (bases 2, 3) on the "
+           f"card: "
+           f"bitwise equal to the CPU's: {not diff} {diff or ''}")
+    if diff:
+        raise AssertionError(f"card draws differ from the CPU's: {diff}")
+    say(9, f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

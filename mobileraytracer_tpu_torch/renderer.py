@@ -1,22 +1,36 @@
-"""Frame rendering (port of `mobileraytracer_tpu/renderer.py`, float32
-accumulation).
+"""Frame rendering and the progressive Renderer (port of
+`mobileraytracer_tpu/renderer.py`).
 
 All pixels of a sample trace as one wavefront batch in patch-major lane
-order; samples accumulate in a Python loop.  The asynchronous Renderer
-lifecycle and checkpoints are not ported yet (ROADMAP.md Queue 1,
-item 12).
+order; samples accumulate in a Python loop, into a float32 film or, with
+`accumulation="int_parity"`, into the reference's integer ABGR bitmap.
+The Renderer keeps the reference's lifecycle (IDLE, BUSY, FINISHED,
+STOPPED), renders synchronously or on a worker thread, and saves and
+resumes its state as a checkpoint.
 """
 from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from . import constants as C
-from . import film, sampling
+from . import film, samplers, sampling
 from .cameras import generate_rays
 from .ops import block_traversal, grid
 from .shaders.engine import trace_image_sample
-from .types import Camera, RenderConfig, Scene, entry_device
+from .types import (Camera, RenderConfig, Scene, entry_device,
+                    scene_num_primitives)
+
+# Render lifecycle states (reference JNI_layer.hpp:12-14).
+STATE_IDLE = "IDLE"
+STATE_BUSY = "BUSY"
+STATE_FINISHED = "FINISHED"
+STATE_STOPPED = "STOPPED"
 
 
 def _pixel_order(config: RenderConfig, device=None):
@@ -49,12 +63,21 @@ def sample_pixels(scene: Scene, camera: Camera, config: RenderConfig,
     w, h = config.width, config.height
     keys = sampling.ray_key(base_key, pixel_ids, sample_idx)
     if config.resolved_pixel_jitter():
-        if config.pixel_sampler != "prng":
-            raise NotImplementedError(
-                f'pixel sampler "{config.pixel_sampler}" is not ported yet '
-                "(ROADMAP.md Queue 1, item 12)")
-        jkeys = sampling.event_key(keys, 0, sampling.PURPOSE_PIXEL_JITTER)
-        r = sampling.uniform(jkeys, 2)
+        if config.pixel_sampler in ("prng", "halton"):
+            jkeys = sampling.event_key(keys, 0, sampling.PURPOSE_PIXEL_JITTER)
+            r = sampling.uniform(jkeys, 2)
+            if config.pixel_sampler == "halton":
+                # (2, 3)-Halton over the sample index, rotated per pixel by
+                # the prng draw (Cranley-Patterson).
+                s = torch.full_like(pixel_ids, sample_idx)
+                r = torch.stack(
+                    [torch.remainder(sampling.halton(s, 2) + r[:, 0], 1.0),
+                     torch.remainder(sampling.halton(s, 3) + r[:, 1], 1.0)],
+                    -1)
+        else:
+            # One of the reference's eight samplers (samplers.py).
+            r = samplers.pixel_jitter(config.pixel_sampler, base_key,
+                                      pixel_ids, sample_idx, w * h)
         # deviation = (r - 0.5) * 2 * (0.5 / size)  (Renderer.cpp:137-140)
         dev_u = (r[:, 0] - 0.5) * 2.0 * (0.5 / w)
         dev_v = (r[:, 1] - 0.5) * 2.0 * (0.5 / h)
@@ -80,37 +103,49 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
                  base_key: torch.Tensor, max_point=None):
     """Full frame at `config.spp` samples, on the scene's device.  Returns
     {"image": (H, W, 3) f32, "bitmap": (H, W) int32 ABGR, "rays": () int32
-    total casted rays}."""
-    if config.accumulation != "float32":
-        raise NotImplementedError(
-            "int_parity accumulation is not ported yet (ROADMAP.md Queue 1,"
-            " item 12)")
+    total casted rays}.  With `accumulation="int_parity"` the samples
+    average into the reference's integer bitmap and the image is that
+    bitmap unpacked."""
     w, h = config.width, config.height
     dev = scene.device
     camera = camera.to(dev)
     base_key = base_key.to(dev)
     _, _, _, inv = _pixel_order(config, dev)
-    accum = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+    int_parity = config.accumulation == "int_parity"
+    if int_parity:
+        accum = torch.zeros((w * h,), dtype=torch.int32, device=dev)
+        avg = film.incremental_avg_int
+    else:
+        accum = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+        avg = film.incremental_avg_float
     rays = torch.zeros((), dtype=torch.int32, device=dev)
     for s in range(config.spp):
         rgb, r = render_sample(scene, camera, config, base_key, s,
                                max_point)
-        accum = film.incremental_avg_float(accum, rgb, s + 1)
+        accum = avg(accum, rgb, s + 1)
         rays = rays + r
-    image = accum[inv.long()]
+    if int_parity:
+        bitmap = accum[inv.long()]
+        image = film.unpack_abgr(bitmap)
+    else:
+        image = accum[inv.long()]
+        bitmap = film.quantize_abgr(image)
     return {"image": image.reshape(h, w, 3),
-            "bitmap": film.quantize_abgr(image).reshape(h, w),
+            "bitmap": bitmap.reshape(h, w),
             "rays": rays}
 
 
 class Renderer:
-    """Synchronous progressive renderer: renders sample by sample and
-    exposes the running image, bitmap and casted-ray total.  It runs on
-    the CUDA card unless `device` names another (see types.entry_device:
-    without a card it raises); on the CPU the traversal runs the kernels'
-    plain versions.  With ACC_BVH the block grid, and with
-    ACC_REGULAR_GRID the cell grid, is built on construction.
-    `max_point` is DepthMap's far point ((1, 1, 1) when None)."""
+    """Progressive renderer, the reference's render loop and lifecycle
+    (C_wrapper.cpp RayTrace and the JNI layer): renders sample by
+    sample into a float32 film, exposes the running image, bitmap, sample
+    index and casted-ray total, and stops cooperatively between samples.
+    It runs on the CUDA card unless `device` names another (see
+    types.entry_device: without a card it raises); on the CPU the
+    traversal runs the kernels' plain versions.  With ACC_BVH the block
+    grid, and with ACC_REGULAR_GRID the cell grid, is built on
+    construction.  `max_point` is DepthMap's far point ((1, 1, 1) when
+    None)."""
 
     def __init__(self, scene: Scene, camera: Camera, config: RenderConfig,
                  max_point=None, device=None):
@@ -119,18 +154,34 @@ class Renderer:
             scene = block_traversal.build(scene, device=device)
         elif config.accelerator == C.ACC_REGULAR_GRID and scene.bvh is None:
             scene = grid.build_grid(scene, device=device)
+        self.device = device
         self.scene = scene.to(device)
         self.camera = camera.to(device)
         self.config = config.rounded()
         self.max_point = max_point
-        self.sample = 0
-        self.total_rays = 0
-        w, h = self.config.width, self.config.height
-        self._accum = torch.zeros((w * h, 3), dtype=torch.float32,
-                                  device=device)
+        self._key = sampling.prng_key(self.config.seed, device)
         _, _, _, inv = _pixel_order(self.config, device)
         self._inv = inv.long()
-        self._key = sampling.prng_key(self.config.seed, device)
+        self._thread = None
+        self._error = None
+        self.render_seconds = 0.0
+        self.reset()
+
+    def reset(self):
+        self._stop = False
+        self.sample = 0
+        self.total_rays = 0
+        self.state = STATE_IDLE
+        self.fps = 0.0
+        w, h = self.config.width, self.config.height
+        self._accum = torch.zeros((w * h, 3), dtype=torch.float32,
+                                  device=self.device)
+
+    def stop_render(self):
+        """Cooperative cancel (reference Renderer.cpp:93-99): the running
+        render, synchronous or on the worker thread, schedules no further
+        sample.  Safe to call from any thread."""
+        self._stop = True
 
     @property
     def image(self) -> np.ndarray:
@@ -143,13 +194,105 @@ class Renderer:
         return film.quantize_abgr(
             self._accum[self._inv]).reshape(h, w).cpu().numpy()
 
-    def render(self) -> np.ndarray:
-        """Runs the remaining samples; returns the image."""
-        while self.sample < self.config.spp:
+    def render(self, callback: Optional[Callable] = None) -> np.ndarray:
+        """Runs the remaining samples up to config.spp, unless stopped;
+        `callback(renderer)` runs after each sample (the progressive
+        display hook).  Returns the image."""
+        t0 = time.perf_counter()
+        self.state = STATE_BUSY
+        while self.sample < self.config.spp and not self._stop:
+            ts = time.perf_counter()
             rgb, rays = render_sample(self.scene, self.camera, self.config,
                                       self._key, self.sample, self.max_point)
-            self._accum = film.incremental_avg_float(self._accum, rgb,
-                                                     self.sample + 1)
+            accum = film.incremental_avg_float(self._accum, rgb,
+                                               self.sample + 1)
+            rays = int(rays)     # waits for the sample, accum included
+            # One reference swap: a poller sees a whole frame at some
+            # sample count.
+            self._accum = accum
             self.sample += 1
-            self.total_rays += int(rays)
+            self.total_rays += rays
+            self.fps = 1.0 / max(time.perf_counter() - ts, 1e-9)
+            if callback is not None:
+                callback(self)
+        self.render_seconds = time.perf_counter() - t0
+        self.state = STATE_STOPPED if self._stop else STATE_FINISHED
         return self.image
+
+    def render_async(self, callback: Optional[Callable] = None):
+        """Renders on a worker thread, as the reference's
+        RayTrace(config, async=true) (C_wrapper.cpp:283-290), and returns
+        the thread at once.  The state is BUSY before this returns; while
+        it lasts `sample`, `fps`, `image`, `bitmap` and `stats_line()` give
+        live values.  The worker uses this thread's CUDA stream on the
+        Renderer's device, so a poller's reads queue behind each finished
+        sample.  `stop_render()` cancels; `wait()` joins."""
+        if self.state == STATE_BUSY:
+            raise RuntimeError("render already in progress")
+        self.state = STATE_BUSY
+        self._error = None
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def run():
+            try:
+                if stream is None:
+                    self.render(callback)
+                else:
+                    with torch.cuda.device(self.device), \
+                            torch.cuda.stream(stream):
+                        self.render(callback)
+            except Exception as e:   # re-raised by wait()
+                self._error = e
+                self.state = STATE_STOPPED
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        return self._thread
+
+    def wait(self, timeout: Optional[float] = None) -> str:
+        """Joins a render_async worker; returns the state.  Raises what the
+        worker raised."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+        if self._error is not None:
+            raise self._error
+        return self.state
+
+    def preview(self) -> np.ndarray:
+        """One DiffuseMaterial sample of every pixel (flat Kd), the
+        reference UI's quick preview."""
+        cfg = dataclasses.replace(self.config, shader=C.SHADER_DIFFUSE,
+                                  spp=1)
+        out = render_frame(self.scene, self.camera, cfg, self._key,
+                           self.max_point)
+        return out["image"].cpu().numpy()
+
+    def stats_line(self) -> str:
+        """The live stats line of the reference UI (RenderTask.kt:169-260)."""
+        prims = scene_num_primitives(self.scene)
+        n_prims = prims["triangles"] + prims["spheres"] + prims["planes"]
+        return (f"fps:{self.fps:.1f} r:{self.config.width}x"
+                f"{self.config.height} spp:{self.config.spp} "
+                f"sample:{self.sample} state:{self.state} "
+                f"p:{n_prims} l:{prims['lights']}")
+
+    def save_checkpoint(self, path: str) -> None:
+        """The render state as the JAX package's .npz (utils/checkpoint)."""
+        from .utils.checkpoint import save_render_state
+        save_render_state(path, self._accum, self.sample, self.total_rays,
+                          self.config)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resumes a render state saved by either package; its config must
+        equal this renderer's."""
+        from .utils.checkpoint import load_render_state
+        accum, sample, rays, config = load_render_state(path)
+        if config != self.config:
+            raise ValueError("checkpoint config does not match renderer "
+                             f"config: {config} vs {self.config}")
+        self._accum = torch.from_numpy(accum).to(self.device)
+        self.sample = sample
+        self.total_rays = rays
+        self._stop = False
+        self.state = STATE_IDLE

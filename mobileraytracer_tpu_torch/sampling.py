@@ -32,6 +32,28 @@ def event_key(keys: torch.Tensor, bounce, purpose: int) -> torch.Tensor:
     return fold_in(fold_in(keys, bounce), purpose)
 
 
+def halton(index: torch.Tensor, base: int = 2) -> torch.Tensor:
+    """Halton radical inverse of each uint32 index (held in int64), the
+    reference's haltonSequence (Utils.cpp:43-53), as the JAX package
+    computes it: 32 fixed passes in float32.  XLA compiles the JAX
+    package's `fraction / base` into a product with the float32 reciprocal
+    of the constant base, so this does the same (bit for bit, on the CPU
+    and the card alike)."""
+    idx = index.to(torch.int64) & 0xFFFFFFFF
+    inv_base = torch.tensor(1.0 / base, dtype=torch.float32,
+                            device=idx.device)
+    fraction = torch.ones(idx.shape, dtype=torch.float32, device=idx.device)
+    value = torch.zeros_like(fraction)
+    for _ in range(32):
+        active = idx > 0
+        fraction = torch.where(active, fraction * inv_base, fraction)
+        value = torch.where(active,
+                            value + fraction * (idx % base).to(torch.float32),
+                            value)
+        idx = torch.where(active, idx // base, idx)
+    return value
+
+
 def _cross(a, b):
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]

@@ -297,3 +297,12 @@ class RenderConfig:
         return dataclasses.replace(
             self, width=round_down(self.width),
             height=round_down(self.height))
+
+
+def scene_num_primitives(scene: Scene) -> dict:
+    return {
+        "triangles": int(scene.triangles.valid.sum()),
+        "spheres": int(scene.spheres.valid.sum()),
+        "planes": int(scene.planes.valid.sum()),
+        "lights": int(scene.lights.num),
+    }

@@ -1,4 +1,5 @@
 """The PyTorch port imports without jax or flax installed."""
+import json
 import pathlib
 import subprocess
 import sys
@@ -47,3 +48,22 @@ def test_no_jax_import_in_port_sources():
         for bad in ("import jax", "from jax", "import flax", "from flax",
                     "mobileraytracer_tpu.", "from mobileraytracer_tpu "):
             assert bad not in text, f"{p}: {bad}"
+
+
+def test_cli_runs_as_module_without_jax():
+    """`python -m mobileraytracer_tpu_torch.cli --cpu` renders and prints
+    its metrics line with jax and the JAX package unimportable."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['flax'] = None\n"
+            "sys.modules['mobileraytracer_tpu'] = None\n"
+            "sys.argv = ['cli', '--cpu', '--width', '16', '--height', '16',"
+            " '--acc', '1']\n"
+            "runpy.run_module('mobileraytracer_tpu_torch.cli',"
+            " run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    metrics = json.loads(out.stdout.strip().splitlines()[-1])
+    assert metrics["total_rays"] >= 16 * 16
+    assert metrics["rays_per_second"] > 0
