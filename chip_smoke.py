@@ -80,24 +80,54 @@ raises and the script exits nonzero):
      eight pixel samplers' and the Halton sequence's draws on the card,
      bitwise equal to the CPU's.  Each kernel's record gains its launches
      in the command line's frame.
+ 10. gradients: BASELINE #5 (bench_grad.py's defaults) through
+     diff.vertex_grad at 512x512 on the phase-3 scene, Whitted, nee_share
+     128, edge_keep from edge_topology, 4,096 silhouette and 1,024 shadow
+     edge draws, 8 samples an edge: a warm-up call under torch.profiler
+     (device busy ms; idle share against the timed call) whose banded
+     batches (the largest of each kind) are held bitwise against the
+     plain version; one call timed by CUDA events with the launch
+     counters reset just before (banded > 0, tile-MT none), its peak
+     memory, Mpixel-grads/s, and its parts by CUDA events recorded inside
+     it (geom.EVENTS: the interior forward + backward, the silhouette and
+     shadow terms, the two Gumbel-max draws); the whole call
+     bitwise equal, under torch.use_deterministic_algorithms, to the same
+     call with the plain versions in the kernels' place; the 32x32
+     cornell2 gradients (material loss, kd and le gradients, vertex
+     gradients; naive and block BVH) within the CPU tests' tolerance of
+     the JAX package's, committed as tests/data/torch_port_golden_grads.npz;
+     the card's Gumbel-max draws bitwise equal to the CPU's; and
+     recover_materials for 3 steps at 512x512 (kd from flat 0.5
+     toward the frame at the true materials, lr 0.05): finite losses,
+     s/step, a non-zero kd gradient for every material the frame sees,
+     and a run resumed from its step-2 checkpoint equal to the
+     uninterrupted one at step 3.  Each kernel's record gains its
+     launches in the gradient call.
 The script's seconds, the card's name and power limit and then the
 kernels' JSON record come just before the last line, {"ok": true,
 "device": {...}}.
 """
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
+import tempfile
 import time
 
-import numpy as np
-import torch
+# cuBLAS's deterministic workspace (phase 10 runs gradients under
+# torch.use_deterministic_algorithms); set before the first CUDA call.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 T_START = time.perf_counter()
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden_conference64.npy"
 GOLDEN_SHADERS = ROOT / "tests" / "data" / "torch_port_golden_shaders64.npz"
+GOLDEN_GRADS = ROOT / "tests" / "data" / "torch_port_golden_grads.npz"
 # Held as in tests/test_torch_render.py: the golden comes from XLA's CPU
 # code (FMA-contracted arithmetic), the port rounds every operation.
 IMG_ATOL = 1e-4
@@ -203,15 +233,16 @@ def say_bound(phase, kind, what, n, k_ms, p_ms, bound, rounds, card):
                f"computes a candidate-list traversal [{card}]")
 
 
-def profile_device(run):
+def profile_device(run, host_ops=True):
     """Device busy time of run() under torch.profiler, summed over the
     device's own kernel and copy rows.  Returns (busy ms, device events
     recorded, {name: (ms, events)} of the largest rows, {aten operator:
     (ms, calls)} of the host operators whose own device kernels took
-    longest)."""
+    longest; empty without `host_ops`, which traces the device alone)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    with profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
     rows, ops = {}, {}
@@ -512,7 +543,14 @@ def main():
         kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
         rec["launches_cli"] = cli_launches[kind]
 
-    say(9, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    # -- 10 -----------------------------------------------------------------
+    grad_launches, grad_err = gradients_phase(scene, cam, card)
+    for rec in records:
+        kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
+        rec["launches_grad"] = grad_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], grad_err.get(kind, 0.0))
+
+    say(10, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1185,6 +1223,242 @@ def loaders_phase(cam, key, cfg, img4, rays4, card):
         raise AssertionError(f"card draws differ from the CPU's: {diff}")
     say(9, f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+
+# Phase 10's golden, as tests/test_torch_golden_grads.py computes it.
+GRAD_SIZE = 32
+GRAD_VKW = dict(edge_samples=4, edge_budget=64, shadow_edges=True,
+                shadow_budget=32)
+GRAD_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-3, 1e-5
+
+
+def grads_close(got, want):
+    """(holds, max abs err): finite, and within GRAD_RTOL or GRAD_ATOL_REL
+    times the largest |want| entry-wise."""
+    got = got.detach().cpu().numpy()
+    err = np.abs(got - want)
+    tol = GRAD_RTOL * np.abs(want) + GRAD_ATOL_REL * np.abs(want).max()
+    return bool(np.isfinite(got).all() and (err <= tol).all()), \
+        float(err.max())
+
+
+def golden_grads(dev):
+    """The 32x32 cornell2 gradients against the JAX package's golden.
+    Returns the largest relative error seen."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch import sampling, scenes
+    from mobileraytracer_tpu_torch.diff import geom
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.parallel import mesh as pmesh
+    gold = np.load(GOLDEN_GRADS)
+    target = torch.from_numpy(gold["target"])
+    held = []
+    for acc, acc_id in (("naive", C.ACC_NAIVE), ("bvh", C.ACC_BVH)):
+        sc, cm = scenes.load_builtin(C.SCENE_CORNELL2, 1.0)
+        le = sc.materials.le.clone()
+        le[0] = torch.from_numpy(gold["le0"])
+        sc = sc.replace(materials=sc.materials.replace(le=le))
+        sc = bt.build(sc, device=dev) if acc == "bvh" else sc.to(dev)
+        cfg = mrt.RenderConfig(width=GRAD_SIZE, height=GRAD_SIZE, spp=1,
+                               shader=C.SHADER_WHITTED, accelerator=acc_id,
+                               scene_id=C.SCENE_CORNELL2)
+        loss, g = pmesh.train_step_sharded(sc, cm, cfg,
+                                           sampling.prng_key(1, dev), target)
+        vloss, vg = geom.vertex_grad(sc, cm, cfg, sampling.prng_key(3, dev),
+                                     edge_keep=geom.edge_topology(
+                                         sc.triangles), **GRAD_VKW)
+        got = {"kd": g["kd"], "le": g["le"], **vg}
+        checks = [(k, *grads_close(got[k], gold[f"{acc}_{k}"])) for k in got]
+        for k, l in (("loss", loss), ("vloss", vloss)):
+            want = float(gold[f"{acc}_{k}"])
+            rel = abs(float(l) - want) / abs(want)
+            checks.append((k, rel <= GRAD_LOSS_RTOL, rel))
+        say(10, f"cornell2 {GRAD_SIZE}x{GRAD_SIZE} {acc}: material loss "
+                f"{float(loss):.7f} (JAX {float(gold[acc + '_loss']):.7f}), "
+                f"vertex loss {float(vloss):.7f} (JAX "
+                f"{float(gold[acc + '_vloss']):.7f}); max abs err "
+                + ", ".join(f"{k} {e:.3e}" for k, _, e in checks)
+                + f"; within the CPU tests' tolerance: "
+                  f"{all(ok for _, ok, _ in checks)}")
+        held += checks
+    if not all(ok for _, ok, _ in held):
+        raise AssertionError("gradients disagree with the JAX golden")
+
+
+def gradients_phase(scene, cam, card):
+    """Phase 10: BASELINE #5's vertex gradients and the material trainer on
+    the card.  Returns ({kind: launches in the timed gradient call},
+    {kind: max abs err of its batches against the plain version})."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch import sampling, threefry
+    from mobileraytracer_tpu_torch.diff import geom
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    from mobileraytracer_tpu_torch.parallel import mesh as pmesh
+    from mobileraytracer_tpu_torch.parallel import recover
+    t_phase = time.perf_counter()
+    dev = scene.device
+    cam = cam.to(dev)
+    size = 512
+    cfg = mrt.RenderConfig(width=size, height=size, spp=1,
+                           shader=C.SHADER_WHITTED, accelerator=C.ACC_BVH,
+                           nee_share=128)
+    keep = geom.edge_topology(scene.triangles)
+    vkw = dict(edge_samples=8, edge_keep=keep, edge_budget=4096,
+               shadow_edges=True, shadow_budget=1024)
+    gkey = sampling.prng_key(0, dev)
+    say(10, f"BASELINE #5: {size}x{size} Whitted over the block BVH, "
+            f"{int(keep.sum())} of {keep.size} edges kept, "
+            f"{vkw['edge_budget']} silhouette and {vkw['shadow_budget']} "
+            f"shadow draws x "
+            f"{vkw['edge_samples']} samples")
+
+    def vg():
+        return geom.vertex_grad(scene, cam, cfg, gkey, **vkw)
+
+    # Warm-up, under torch.profiler, with the banded batches recorded.
+    captured = {}
+    restore = recording(captured, lambda kind, any_hit: (
+        kind, "shadow (any-hit)" if any_hit else "closest"))
+    try:
+        busy, events, top, _ = profile_device(vg, host_ops=False)
+    finally:
+        restore()
+    err, _, _ = check_batches(10, captured)
+    t_warm = time.perf_counter() - t_phase
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    geom.EVENTS = {}
+    out = {}
+    try:
+        call_ms = event_ms(lambda: out.update(r=vg()))
+        parts = {k: sum(a.elapsed_time(b) for a, b in ev)
+                 for k, ev in geom.EVENTS.items()}
+    finally:
+        geom.EVENTS = None
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    loss, grads = out["r"]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    mpx = size * size / (call_ms / 1e3) / 1e6
+    n_edges = 3 * scene.triangles.capacity
+    say(10, f"vertex_grad: {call_ms:.3f} ms by CUDA events, {mpx:.6f} "
+            f"Mpixel-grads/s; loss {float(loss):.7f}; grads finite {finite},"
+            f" max |g| " + ", ".join(f"{k} {float(g.abs().max()):.4e}"
+                                     for k, g in grads.items())
+            + f"; launches {launches}; peak memory {peak} bytes "
+              f"({peak / 2**30:.3f} GiB) [{card}]")
+    say(10, "its parts by CUDA events (ms): interior forward + backward "
+            f"{parts['interior']:.3f}; silhouette term "
+            f"{parts['silhouette']:.3f} and shadow term "
+            f"{parts['shadow']:.3f}, each with its edge "
+            f"draw; the two Gumbel-max draws {parts['draws']:.3f} "
+            f"({(4096 + 1024) * n_edges} draws over {n_edges} edges, share "
+            f"{parts['draws'] / call_ms:.3f} of the call) [{card}]")
+    say(10, f"the warm-up call under torch.profiler: device busy "
+            f"{busy:.3f} ms, idle share {1.0 - busy / call_ms:.3f} of the "
+            f"timed call, {events} device events; largest device rows (ms): "
+            + "; ".join(f"{k[:60]} {ms:.3f} ({n})"
+                        for k, (ms, n) in top.items())
+            + f" [{card}]")
+    if not (finite and launches["banded"] > 0 and launches["tilemt"] == 0
+            and all(float(g.abs().max()) > 0 for g in grads.values())):
+        raise AssertionError("the gradient call failed its checks")
+
+    say(10, f"the profiled warm-up done at {t_warm:.1f} s, the timed call "
+            f"at {time.perf_counter() - t_phase:.1f} s")
+    # The whole call against the plain versions, deterministically (the
+    # NaN fill of new tensors would only cost time here).
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        l1, g1 = vg()
+        saved = K.traverse_tilemt, K.traverse_banded
+        K.traverse_tilemt, K.traverse_banded = K.tilemt_plain, K.banded_plain
+        try:
+            l2, g2 = vg()
+        finally:
+            K.traverse_tilemt, K.traverse_banded = saved
+        same = torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k])
+                                           for k in g1)
+        say(10, f"vertex_grad under deterministic algorithms, kernels vs "
+                f"plain versions: bitwise equal {same} (max abs err "
+                + ", ".join(f"{k} {float((g1[k] - g2[k]).abs().max()):.3e}"
+                            for k in g1) + ")")
+        if not same:
+            raise AssertionError("vertex_grad differs with the plain versions")
+        say(10, f"held against the plain versions at "
+                f"{time.perf_counter() - t_phase:.1f} s")
+        golden_grads(dev)
+        # The Gumbel-max draw on the card against the CPU's (which the CPU
+        # tests hold bit for bit against jax.random.categorical), streamed
+        # in row and column blocks.
+        logits = torch.log(torch.linspace(1e-3, 2.0, 5000))
+        draws = [threefry.categorical(sampling.fold_in(
+            sampling.prng_key(3, d), 0x5ED6E), logits.to(d), 300,
+            block=4096).cpu() for d in (dev, "cpu")]
+        say(10, f"Gumbel-max draws (300 rows of 5,000 logits, blocks of "
+                f"4,096) on the card bitwise equal to the CPU's: "
+                f"{torch.equal(*draws)}")
+        if not torch.equal(*draws):
+            raise AssertionError("the card's Gumbel-max draws differ")
+
+        # The trainer: 3 recovery steps toward the frame at the true kd.
+        target = mrt.render_frame(scene, cam, cfg, gkey)["image"]
+        kd0 = torch.full_like(scene.materials.kd, 0.5)
+        prep = pmesh.prepared(scene, cam, cfg, gkey, target)
+        _, g0 = pmesh.loss_and_grads(
+            dict(pmesh.material_params(scene.materials), kd=kd0), scene, cfg,
+            prep, ("kd",))
+        o, d = mrt_primaries(scene, cam, cfg)
+        b = o.shape[0]
+        hit = bt.intersect_scene_blocks(
+            scene, o, d, torch.zeros(b, dtype=torch.int32, device=dev),
+            torch.full((b,), -1, dtype=torch.int32, device=dev), mode="tilemt")
+        seen = torch.unique(hit.mat_id[hit.mat_id >= 0]).long()
+        moved = (g0["kd"][seen].abs().amax(1) > 0)
+        ck = pathlib.Path(tempfile.mkdtemp()) / "opt.npz"
+        kw = dict(steps=3, params_subset=("kd",), learning_rate=0.05,
+                  base_key=gkey, init_params={"kd": kd0},
+                  checkpoint_path=str(ck), checkpoint_every=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p3, losses = recover.recover_materials(scene, cam, cfg, target, **kw)
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / 3
+        p3r, losses_r = recover.recover_materials(scene, cam, cfg, target,
+                                                  resume=True, **kw)
+        ck.unlink()
+        resumed = (torch.equal(p3["kd"], p3r["kd"])
+                   and np.array_equal(losses, losses_r))
+        say(10, f"recover_materials, 3 steps (kd from 0.5, lr 0.05, "
+                f"{size}x{size}): losses {losses.tolist()}, "
+                f"{per_step:.3f} s/step (host clock, checkpoint included); "
+                f"{len(seen)} materials seen, {int(moved.sum())} with a "
+                f"non-zero kd gradient; resumed from the step-2 checkpoint: "
+                f"losses {losses_r.tolist()}, step 3 bitwise equal {resumed}"
+                f" [{card}]")
+        if not (np.isfinite(losses).all() and bool(moved.all())
+                and len(seen) > 0 and resumed):
+            raise AssertionError("the recovery steps failed their checks")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    say(10, f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+def mrt_primaries(scene, cam, cfg):
+    """The frame's jitterless primary rays in lane order."""
+    from mobileraytracer_tpu_torch import cameras, renderer
+    u, v, _, _ = renderer._pixel_order(cfg, scene.device)
+    zero = torch.zeros_like(u)
+    return cameras.generate_rays(cam.to(scene.device), u, v, zero, zero)
 
 
 if __name__ == "__main__":

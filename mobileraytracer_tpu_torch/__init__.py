@@ -2,15 +2,18 @@
 to PyTorch, with its traversal kernels written in CUDA C++ for the H100.
 
 It renders the five shaders of the JAX package over its three
-accelerators and holds against it (same scene arrays, same threefry
-random bits, same block tables and candidate windows, same traversal tie
-rules, same grid cells), and loads OBJ scenes from disk through the same
-conventions.  Module names mirror the JAX package's:
+accelerators and takes material and vertex gradients, holding against it
+(same scene arrays, same threefry random bits, same block tables and
+candidate windows, same traversal tie rules, same grid cells), and loads
+OBJ scenes from disk through the same conventions.  Module names mirror the JAX package's:
   cli             the command line (python -m mobileraytracer_tpu_torch.cli)
   renderer        render_frame, Renderer and its lifecycle
   loaders         OBJ/MTL scenes (native C++ parser), textures, cameras
   samplers        the reference's eight pixel samplers
-  utils           phase timers and metrics, checkpoints, guards
+  utils           phase timers and metrics, checkpoints (renders and
+                  recovery runs), guards
+  diff.geom       vertex gradients with edge sampling (BASELINE #5)
+  parallel        the training step and material recovery, one device
   shaders.engine  the wavefront walker (Whitted, NoShadows, PathTracer)
                   and the single-pass DepthMap and DiffuseMaterial
   shaders.common  materials and next-event estimation

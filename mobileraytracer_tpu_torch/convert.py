@@ -1,5 +1,7 @@
 """Converts the JAX package's state, given as mappings of numpy arrays,
-into the port's tensors (the port's counterpart of loading weights).
+into the port's tensors (the port's counterpart of loading weights):
+scenes, cameras, block grids, material parameters, and optax's Adam
+state to and from torch.optim.Adam's.
 
 Each function takes a mapping from field name to array, e.g.
 `{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}`
@@ -56,3 +58,40 @@ def grid_from_arrays(arrays: Mapping, device=None) -> BlockGrid:
         tri_attr=_t(arrays["tri_attr"], device),
         top_s=int(arrays["top_s"]), top_m=int(arrays["top_m"]),
         t_margin=float(arrays["t_margin"]))
+
+
+def params_from_arrays(arrays: Mapping, device=None) -> dict:
+    """Material parameters ({"kd": ..., ...} of the JAX package's
+    `material_params` or a recovery state's params) as tensors."""
+    return {k: _t(v, device).to(torch.float32) for k, v in arrays.items()}
+
+
+def adam_from_optax(opt: torch.optim.Optimizer, params: dict, count,
+                    mu: Mapping, nu: Mapping) -> None:
+    """Loads optax's Adam state (`ScaleByAdamState` count, mu, nu; each of
+    mu and nu keyed like `params`) into `opt`, a torch.optim.Adam over
+    params' tensors: count -> step, mu -> exp_avg, nu -> exp_avg_sq.  A
+    count of 0 leaves `opt` fresh, as PyTorch keeps no state before its
+    first step."""
+    opt.state.clear()
+    if int(count) == 0:
+        return
+    for k, p in params.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(int(count)), dtype=torch.float32),
+            "exp_avg": _t(mu[k], p.device).to(torch.float32),
+            "exp_avg_sq": _t(nu[k], p.device).to(torch.float32)}
+
+
+def adam_to_optax(opt: torch.optim.Optimizer, params: dict):
+    """(count, mu, nu) as numpy, optax's `ScaleByAdamState` of `opt`'s
+    state over `params` (zeros before the first step)."""
+    count, mu, nu = 0, {}, {}
+    for k, p in params.items():
+        st = opt.state.get(p, {})
+        zero = np.zeros(tuple(p.shape), np.float32)
+        if st:
+            count = int(st["step"])
+        mu[k] = st["exp_avg"].detach().cpu().numpy() if st else zero
+        nu[k] = st["exp_avg_sq"].detach().cpu().numpy() if st else zero
+    return np.asarray(count, np.int32), mu, nu

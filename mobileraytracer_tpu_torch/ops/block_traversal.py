@@ -660,10 +660,15 @@ DEFAULT_MODE = "tilemt"
 
 
 def intersect_scene_blocks(scene: Scene, o, d, prev_kind, prev_id,
-                           t_max=_BIG, mode: str = None) -> Hit:
+                           t_max=_BIG, mode: str = None,
+                           differentiable: bool = False) -> Hit:
     """Closest hit over the whole scene: planes, spheres and area lights by
     the naive scans, triangles by the block traversal (the JAX package's
-    `intersect_scene_pallas`)."""
+    `intersect_scene_pallas`).  With `differentiable` the traversal runs
+    off the tape on detached triangles and rays; the winner's t is
+    re-derived from the live triangle table and the hit attributes are
+    gathered from it (not from the grid's packed copy), so gradients reach
+    the triangles through the hit, not the walk."""
     grid = scene.bvh
     if not isinstance(grid, BlockGrid):
         raise ValueError("call ops.block_traversal.build first")
@@ -673,10 +678,19 @@ def intersect_scene_blocks(scene: Scene, o, d, prev_kind, prev_id,
     t_sp, id_sp = nv.closest_spheres(scene.spheres, o, d, tm, prev_kind,
                                      prev_id)
     trav = _TRAVERSALS[mode or DEFAULT_MODE]
-    t_tr, id_tr = trav(grid, scene.triangles, o, d, tm, prev_kind, prev_id)
-    t_tr = torch.where(id_tr >= 0, t_tr, _BIG)
     t_li, id_li = nv.closest_lights(scene.lights, o, d, tm, prev_kind,
                                     prev_id)
+    if differentiable:
+        with torch.no_grad():
+            tris = scene.triangles.detach()
+            _, id_tr = trav(grid, tris, o.detach(), d.detach(), tm.detach(),
+                            prev_kind, prev_id)
+        t_tr = nv.recompute_tri_t(scene.triangles, o, d, id_tr)
+        t_tr = torch.where(id_tr >= 0, t_tr, _BIG)
+        return nv._fill_hit(scene, o, d, t_pl, id_pl, t_sp, id_sp, t_tr,
+                            id_tr, t_li, id_li)
+    t_tr, id_tr = trav(grid, scene.triangles, o, d, tm, prev_kind, prev_id)
+    t_tr = torch.where(id_tr >= 0, t_tr, _BIG)
     return nv._fill_hit(scene, o, d, t_pl, id_pl, t_sp, id_sp, t_tr, id_tr,
                         t_li, id_li, tri_attr=grid.tri_attr)
 

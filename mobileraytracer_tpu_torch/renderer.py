@@ -55,11 +55,9 @@ def sample_pixels(scene: Scene, camera: Camera, config: RenderConfig,
                   base_key: torch.Tensor, sample_idx: int, u, v, pixel_ids,
                   max_point=None, differentiable: bool = False):
     """Traces one sample of a pixel subset; returns (rgb (B, 3), rays).
-    `max_point` is DepthMap's far point ((1, 1, 1) when None)."""
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable rendering is not ported yet (ROADMAP.md Queue 1,"
-            " item 13)")
+    `max_point` is DepthMap's far point ((1, 1, 1) when None).  With
+    `differentiable` the radiance is on the autograd tape of the scene's
+    tensors (the differentiable walk, shaders/engine.py)."""
     w, h = config.width, config.height
     keys = sampling.ray_key(base_key, pixel_ids, sample_idx)
     if config.resolved_pixel_jitter():
@@ -86,7 +84,8 @@ def sample_pixels(scene: Scene, camera: Camera, config: RenderConfig,
         dev_u = torch.zeros_like(u)
         dev_v = torch.zeros_like(v)
     o, d = generate_rays(camera, u, v, dev_u, dev_v)
-    return trace_image_sample(scene, config, o, d, keys, max_point)
+    return trace_image_sample(scene, config, o, d, keys, max_point,
+                              differentiable=differentiable)
 
 
 def render_sample(scene: Scene, camera: Camera, config: RenderConfig,

@@ -44,8 +44,11 @@ def park_dead_lanes(o: torch.Tensor, d: torch.Tensor, live: torch.Tensor):
     d_rep = d.reshape(nt, st, 3)[rows, pick]
     o_rep = torch.where(any_live[:, None], o_rep, C.FAR_SENTINEL)
     d_rep = torch.where(any_live[:, None], d_rep, _vec(_X, d))
-    o_fill = o_rep.repeat_interleave(st, 0)
-    d_fill = d_rep.repeat_interleave(st, 0)
+    # The fills are a layout artifact and carry no gradient: a dead lane's
+    # cotangent (NaN from inf * 0 where a chain is masked only at its end)
+    # would otherwise flow into the live lane it copies.
+    o_fill = o_rep.repeat_interleave(st, 0).detach()
+    d_fill = d_rep.repeat_interleave(st, 0).detach()
     return (torch.where(live[:, None], o, o_fill),
             torch.where(live[:, None], d, d_fill))
 
@@ -62,13 +65,16 @@ def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def refract(i: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
     """glm::refract; returns (direction, valid), valid False on total
-    internal reflection (direction zero)."""
+    internal reflection (direction zero).  sqrt(k) is taken as 0 at k == 0
+    without its infinite derivative there, so a masked lane's zero
+    cotangent stays zero (the JAX package's `sqrt(where(k >= 0, k, 1))`
+    turns it into NaN, e.g. for a zero direction at eta 1)."""
     cosi = _sum3(n * i)
     k = 1.0 - eta * eta * (1.0 - cosi * cosi)
     valid = k >= 0.0
-    d = (eta[..., None] * i
-         - (eta * cosi + torch.sqrt(torch.where(valid, k, 1.0)))[..., None]
-         * n)
+    pos = k > 0.0
+    root = torch.where(pos, torch.sqrt(torch.where(pos, k, 1.0)), 0.0)
+    d = eta[..., None] * i - (eta * cosi + root)[..., None] * n
     return torch.where(valid[..., None], d, 0.0), valid
 
 

@@ -16,13 +16,18 @@ top's bucket depth drops below its level, flowing into the enclosing one
 or killed when the edge's parent had Ld > 0 and the spine below it hit an
 emitter.
 
-Batches of fewer than 1024 lanes run full-batch steps until drained.
-Larger ones run one full-batch primary step (tile-MT closest pass), then
-repeatedly gather up to `bc` live lanes into a chunk, step the chunk and
-scatter it back: in lane order for Whitted, in (direction octant, origin
-Morton code) order for the PathTracer.  The chunk layout is reproduced
+Batches of fewer than 1024 lanes, and every differentiable walk, run
+full-batch steps until drained.  Larger ones run one full-batch primary
+step (tile-MT closest pass), then repeatedly gather up to `bc` live lanes
+into a chunk, step the chunk and scatter it back: in lane order for
+Whitted, in (direction octant, origin Morton code) order for the
+PathTracer.  The chunk layout is reproduced
 lane for lane, because with `nee_share_secondary` the NEE sharing groups
 follow it.
+
+The differentiable walk is the JAX package's scan (engine.py:436-439):
+full-batch steps, none of them a primary step, with every update out of
+place, so autograd records it; the traversal kernels run off the tape.
 """
 from __future__ import annotations
 
@@ -46,13 +51,27 @@ class Tracer(NamedTuple):
     occluded: Callable  # (scene, o, d, max_dist, prev_kind, prev_id) -> bool
 
 
-def make_tracer(config: RenderConfig) -> Tracer:
+def _no_reverse_mode(what: str, where: str):
+    raise ValueError(
+        f"differentiable rendering does not pass through {what}: the JAX "
+        f"package runs it as a lax.while_loop ({where}), which reverse mode "
+        "rejects; render gradients with ACC_NAIVE, or ACC_BVH on a block "
+        "grid (ops/block_traversal.build)")
+
+
+def make_tracer(config: RenderConfig, differentiable: bool = False) -> Tracer:
     """Accelerator dispatch.  ACC_REGULAR_GRID: the grid DDA when the
     scene holds a grid, else the naive scan.  ACC_BVH on a block grid:
     coherent closest-hit batches (the primary pass in patch-major order)
     take the tile-MT traversal, the others the banded one, and every
     shadow query the banded one; on an escape-index tree (ops/bvh.build):
-    the escape-index walk."""
+    the escape-index walk.
+
+    With `differentiable` the block traversal runs off the tape and its
+    hits are re-derived from the live triangle table, and shadow queries
+    (boolean) see a detached scene and rays.  The grid DDA and the
+    escape-index walk raise, as reverse mode rejects them in the JAX
+    package."""
     if config.accelerator in (C.ACC_NONE, C.ACC_NAIVE):
         return Tracer(
             closest=lambda *a, **k: intersect.intersect_scene_naive(*a),
@@ -60,6 +79,8 @@ def make_tracer(config: RenderConfig) -> Tracer:
     if config.accelerator == C.ACC_REGULAR_GRID:
         def closest_g(scene, o, d, pk, pi, coherent=False):
             if isinstance(scene.bvh, grid.RegularGrid):
+                if differentiable:
+                    _no_reverse_mode("the regular grid's DDA", "grid.py:154")
                 return grid.intersect_scene_grid(scene, o, d, pk, pi)
             return intersect.intersect_scene_naive(scene, o, d, pk, pi)
 
@@ -73,11 +94,20 @@ def make_tracer(config: RenderConfig) -> Tracer:
             if isinstance(scene.bvh, block_traversal.BlockGrid):
                 return block_traversal.intersect_scene_blocks(
                     scene, o, d, pk, pi,
-                    mode="tilemt" if coherent else "banded")
+                    mode="tilemt" if coherent else "banded",
+                    differentiable=differentiable)
+            if differentiable:
+                _no_reverse_mode("the escape-index BVH walk", "bvh.py:277")
             return bvh.intersect_scene_bvh(scene, o, d, pk, pi)
 
         def occluded(scene, o, d, md, pk, pi):
             if isinstance(scene.bvh, block_traversal.BlockGrid):
+                if differentiable:
+                    with torch.no_grad():
+                        return block_traversal.occluded_blocks(
+                            scene.detach(), o.detach(), d.detach(),
+                            torch.as_tensor(md).detach(), pk, pi,
+                            mode="banded")
                 return block_traversal.occluded_blocks(scene, o, d, md, pk,
                                                        pi, mode="banded")
             return bvh.occluded_bvh(scene, o, d, md, pk, pi)
@@ -226,9 +256,14 @@ def _scatter_back(state: WalkState, sub: WalkState, lanes, keep) -> None:
 
 
 def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
-                   o: torch.Tensor, d: torch.Tensor, keys: torch.Tensor):
+                   o: torch.Tensor, d: torch.Tensor, keys: torch.Tensor,
+                   differentiable: bool = False):
     """Whitted, NoShadows or PathTracer radiance of a batch of primary
-    rays.  Returns (rgb (B, 3), casted-ray count as an int32 tensor)."""
+    rays.  Returns (rgb (B, 3), casted-ray count as an int32 tensor).
+    With `differentiable` every step is a full-batch step (no primary
+    step, no compaction): the JAX package's differentiable scan, which
+    stops here once no lane is live, since every later step adds
+    nothing."""
     shader = config.shader
     pathtracer = shader == C.SHADER_PATHTRACER
     b = o.shape[0]
@@ -237,12 +272,11 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
     dev = o.device
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    st_org = torch.zeros((b, s, 3), **f32)
-    st_dir = torch.zeros_like(st_org)
-    st_weight = torch.zeros_like(st_org)
-    st_org[:, 0] = o
-    st_dir[:, 0] = d
-    st_weight[:, 0] = 1.0
+    # Slot 0 holds the primary ray; built out of place for autograd.
+    rest = torch.zeros((b, s - 1, 3), **f32)
+    st_org = torch.cat([o[:, None], rest], 1)
+    st_dir = torch.cat([d[:, None], rest], 1)
+    st_weight = torch.cat([torch.ones((b, 1, 3), **f32), rest], 1)
     no = dict(dtype=torch.bool, device=dev)
     state = WalkState(
         sp=torch.ones((b,), **i32), st_org=st_org, st_dir=st_dir,
@@ -379,8 +413,9 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         return (st.sp > 0) & (st.pops < max_iters)
 
     unit = C.SUBTILE * max(1, 128 // C.SUBTILE)   # traversal padding unit
-    if b < 8 * unit or shader == C.SHADER_NOSHADOWS:
-        # Small batches: full-batch steps until drained.
+    if differentiable or b < 8 * unit or shader == C.SHADER_NOSHADOWS:
+        # Small batches and the differentiable walk: full-batch steps
+        # until drained.
         it = 0
         while it < max_iters and bool(lane_live(state).any()):
             state = step(state, keys)
@@ -466,11 +501,13 @@ def shade_diffuse(scene: Scene, config: RenderConfig, tracer: Tracer, o, d):
 
 
 def trace_image_sample(scene: Scene, config: RenderConfig, o, d, keys,
-                       max_point=None):
+                       max_point=None, differentiable: bool = False):
     """Radiance of one sample of every lane, dispatched on the shader id
     (C_wrapper.cpp:154-194).  `max_point` is DepthMap's far point,
-    (1, 1, 1) when None."""
-    tracer = make_tracer(config)
+    (1, 1, 1) when None.  `differentiable` takes the differentiable walk
+    and tracer (see make_tracer); DepthMap and DiffuseMaterial use that
+    tracer too."""
+    tracer = make_tracer(config, differentiable=differentiable)
     if config.shader == C.SHADER_DEPTHMAP:
         if max_point is None:
             max_point = torch.ones(3)
@@ -479,4 +516,5 @@ def trace_image_sample(scene: Scene, config: RenderConfig, o, d, keys,
         return shade_depthmap(scene, config, tracer, o, d, max_point)
     if config.shader == C.SHADER_DIFFUSE:
         return shade_diffuse(scene, config, tracer, o, d)
-    return trace_radiance(scene, config, tracer, o, d, keys)
+    return trace_radiance(scene, config, tracer, o, d, keys,
+                          differentiable=differentiable)

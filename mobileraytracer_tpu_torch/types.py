@@ -35,7 +35,8 @@ def entry_device(device=None) -> torch.device:
 
 class TensorData:
     """Mixin for dataclasses of tensors (and nested such dataclasses):
-    `.to(device)` moves every tensor field, `.replace(**kw)` copies."""
+    `.to(device)` moves every tensor field, `.replace(**kw)` copies,
+    `.detach()` takes every tensor off the autograd tape."""
 
     def to(self, device):
         kw = {}
@@ -47,6 +48,17 @@ class TensorData:
         return dataclasses.replace(self, **kw)
 
     def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    def detach(self):
+        """A copy whose tensors, nested ones included, are off the
+        autograd tape."""
+        kw = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (torch.Tensor, TensorData)):
+                v = v.detach()
+            kw[f.name] = v
         return dataclasses.replace(self, **kw)
 
 

@@ -448,3 +448,82 @@ def test_grid_and_escape_bvh_frames_on_the_card(shader):
     for acc in (C.ACC_REGULAR_GRID, C.ACC_BVH):
         assert frames[acc][1] == rays
         _pt_match(frames[acc][0], ref)
+
+
+def _plain_kernels():
+    """Puts the plain versions in the tile-MT and banded wrappers' place;
+    returns the function that puts the wrappers back."""
+    saved = K.traverse_tilemt, K.traverse_banded
+    K.traverse_tilemt, K.traverse_banded = K.tilemt_plain, K.banded_plain
+
+    def restore():
+        K.traverse_tilemt, K.traverse_banded = saved
+    return restore
+
+
+@pytest.mark.cuda
+def test_vertex_grad_on_the_card_equals_plain_versions(cuda_scene):
+    """vertex_grad at 64x64 on the 20k proxy (silhouette and shadow edge
+    draws): the gradient path launches banded, never tile-MT, and under
+    deterministic algorithms equals the same call with the plain
+    versions in the kernels' place, bit for bit."""
+    from mobileraytracer_tpu_torch.diff import geom
+    scene = cuda_scene[0]
+    _, cam, _ = bench_scenes.conference_proxy(target_prims=20000)
+    cfg = RenderConfig(width=64, height=64, shader=C.SHADER_WHITTED,
+                       accelerator=C.ACC_BVH, nee_share=128)
+    kw = dict(edge_keep=geom.edge_topology(scene.triangles), edge_budget=256,
+              shadow_edges=True, shadow_budget=64)
+    key = sampling.prng_key(0, "cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        K.reset_launches()
+        loss, g = geom.vertex_grad(scene, cam, cfg, key, **kw)
+        launches = dict(K.LAUNCHES)
+        restore = _plain_kernels()
+        try:
+            loss_p, g_p = geom.vertex_grad(scene, cam, cfg, key, **kw)
+        finally:
+            restore()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert launches["banded"] > 0 and launches["tilemt"] == 0, launches
+    assert torch.equal(loss, loss_p)
+    for k in g:
+        assert torch.isfinite(g[k]).all()
+        assert torch.equal(g[k], g_p[k]), k
+    assert float(g["va"].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_plain_versions(cuda_scene):
+    """One material training step at 64x64: the loss and every material
+    gradient equal the plain-version step's under deterministic
+    algorithms, and only banded launches."""
+    from mobileraytracer_tpu_torch.parallel import mesh as pmesh
+    scene = cuda_scene[0]
+    _, cam, _ = bench_scenes.conference_proxy(target_prims=20000)
+    cfg = RenderConfig(width=64, height=64, shader=C.SHADER_WHITTED,
+                       accelerator=C.ACC_BVH, nee_share=128)
+    target = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (64, 64, 3)).astype(np.float32))
+    key = sampling.prng_key(1, "cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        K.reset_launches()
+        loss, g = pmesh.train_step_sharded(scene, cam, cfg, key, target)
+        launches = dict(K.LAUNCHES)
+        restore = _plain_kernels()
+        try:
+            loss_p, g_p = pmesh.train_step_sharded(scene, cam, cfg, key,
+                                                   target)
+        finally:
+            restore()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert launches["banded"] > 0 and launches["tilemt"] == 0, launches
+    assert torch.equal(loss, loss_p)
+    for k in g:
+        assert torch.isfinite(g[k]).all()
+        assert torch.equal(g[k], g_p[k]), k
+    assert float(g["kd"].abs().max()) > 0

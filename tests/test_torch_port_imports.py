@@ -26,6 +26,10 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) > 15
+    assert {"mobileraytracer_tpu_torch.diff.geom",
+            "mobileraytracer_tpu_torch.parallel.mesh",
+            "mobileraytracer_tpu_torch.parallel.recover",
+            "mobileraytracer_tpu_torch.utils.checkpoint"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['flax'] = None\n"
