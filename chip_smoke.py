@@ -53,7 +53,7 @@ raises and the script exits nonzero):
      tile-MT and banded batches of each kind (the primary step's, the
      bounce chunks' closest-hit and shadow passes, and their refill loops)
      are held bitwise against the plain versions, then 16 spp (bench.py
-     --shader 2 --spp 16; 4 spp when 16 would take over a minute), with
+     --shader 2 --spp 16; 2 spp when 16 would take over a minute), with
      the launch counters reset just before: ms/frame, rays/s, walk steps,
      refill loops, launches, and one 1-spp frame under torch.profiler
      (with the host operators whose kernels take longest); DepthMap and
@@ -103,6 +103,27 @@ raises and the script exits nonzero):
      and a run resumed from its step-2 checkpoint equal to the
      uninterrupted one at step 3.  Each kernel's record gains its
      launches in the gradient call.
+ 11. the sharded forms (parallel/mesh.py) on the one card, each job's
+     ranks spawned as processes that share cuda:0 (so backend gloo; a
+     rank that raises fails the phase): a 2-rank gloo job and a 1-rank
+     NCCL job.  Each rank builds the conference proxy itself and checks
+     it equal on every rank by an all-gathered digest; then the main
+     path's 512x512 frame through render_frame_sharded on the 1-D mesh
+     (and, in the gloo job, on the (2, 1) mesh of make_mesh_2d), driven
+     with the launch counters reset just before: image, bitmap and rays
+     bitwise equal to phase 4's, tile-MT and banded launched on every
+     rank, each rank's largest batches bitwise equal to the plain
+     versions, ms/frame by CUDA events per rank and the host clock of the
+     whole sharded frame.  The gloo job then takes train_step_sharded at
+     512x512 from phase 10's kd0 (loss and kd, le gradients within the
+     CPU tests' tolerance of the one-device step), 3 recover_materials
+     steps over the mesh (losses within tolerance of phase 10's, kd
+     bitwise equal on both ranks, a resume from the step-2 checkpoint
+     equal at step 3) and BASELINE #5 through vertex_grad(mesh=)
+     (gradients within the CPU tests' tolerance of phase 10's call; ms by
+     CUDA events, Mpixel-grads/s and each rank's peak memory).  Each
+     kernel's record gains `launches_sharded`, its launches in the 2-rank
+     1-D frame summed over the ranks.
 The script's seconds, the card's name and power limit and then the
 kernels' JSON record come just before the last line, {"ok": true,
 "device": {...}}.
@@ -137,9 +158,10 @@ IMG_FRACTION = 0.999
 # drives pixels up to ~30), and 99.9% of pixels hold.
 PT_RTOL = 1e-3
 FRAMES = 5
-# Phase 8's PathTracer frame: 16 spp, cut to 4 when 16 times one 1-spp
-# frame exceeds a minute.
-PT_SPP, PT_SPP_CUT, PT_FRAME_S = 16, 4, 60.0
+# Phase 8's PathTracer frame: 16 spp, cut to 2 when 16 times one 1-spp
+# frame exceeds a minute (2, not 4, keeps the script with phase 11 near
+# eight minutes on the H100).
+PT_SPP, PT_SPP_CUT, PT_FRAME_S = 16, 2, 60.0
 
 KERNELS = {
     "tilemt": dict(name="traverse_tilemt", route="cuda",
@@ -544,13 +566,23 @@ def main():
         rec["launches_cli"] = cli_launches[kind]
 
     # -- 10 -----------------------------------------------------------------
-    grad_launches, grad_err = gradients_phase(scene, cam, card)
+    grad_launches, grad_err, grad_ref = gradients_phase(scene, cam, card)
     for rec in records:
         kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
         rec["launches_grad"] = grad_launches[kind]
         rec["max_abs_err"] = max(rec["max_abs_err"], grad_err.get(kind, 0.0))
 
-    say(10, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    # -- 11 -----------------------------------------------------------------
+    frame4 = dict(image=torch.from_numpy(img), bitmap=out["bitmap"].cpu(),
+                  rays=rays)
+    shard_launches, shard_err = sharded_phase(frame4, frame_ms, grad_ref,
+                                              card)
+    for rec in records:
+        kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
+        rec["launches_sharded"] = shard_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], shard_err.get(kind, 0.0))
+
+    say(11, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1446,10 +1478,275 @@ def gradients_phase(scene, cam, card):
         if not (np.isfinite(losses).all() and bool(moved.all())
                 and len(seen) > 0 and resumed):
             raise AssertionError("the recovery steps failed their checks")
+        # Phase 11's reference: the one-device training step from kd0.
+        s0 = scene.replace(materials=scene.materials.replace(kd=kd0))
+        tl, tg = pmesh.train_step_sharded(s0, cam, cfg, gkey, target)
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = fill
     say(10, f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    ref = dict(target=target.cpu(), kd0=kd0.cpu(),
+               losses=torch.from_numpy(losses),
+               vg_loss=float(loss), vg=cpu(grads), vg_ms=call_ms,
+               train_loss=float(tl), train=cpu(tg), per_step=per_step)
+    return launches, err, ref
+
+
+# Phase 11: the jobs of ranks that share the card, (backend, ranks, what
+# each runs beyond the 1-D frame), and the seconds each job may take.
+SHARDED_JOBS = (("gloo", 2, ("2-D", "grads")), ("nccl", 1, ()))
+SHARDED_S = 420
+SHARDED_SIZE = 512
+
+
+def spawn_ranks(fn, args, nprocs, timeout_s):
+    """Runs fn(rank, *args) in `nprocs` spawned processes and waits for all
+    of them; a rank that raises makes this raise (and the others are
+    stopped), as does a job that outlasts `timeout_s`."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the ranks ran over {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def sharded_frame(pmesh, mesh, name, scene, cam, cfg, key, ref, tag, card):
+    """One rank's part of the sharded main-path frame: driven once with the
+    launch counters reset just before and the largest batches recorded,
+    held bitwise against phase 4's frame, the batches against the plain
+    versions, then timed.  Returns the rank's record."""
+    from mobileraytracer_tpu_torch.ops import kernels as K
+
+    def frame():
+        return pmesh.render_frame_sharded(scene, cam, cfg, key, mesh)
+
+    captured = {}
+    restore = recording(captured, lambda kind, any_hit: (
+        kind, "primary" if kind == "tilemt" else
+        "shadow (any-hit)" if any_hit else "refill (closest)"))
+    try:
+        K.reset_launches()
+        out = frame()
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore()
+    same = (torch.equal(out["image"].cpu(), ref["image"])
+            and torch.equal(out["bitmap"].cpu(), ref["bitmap"])
+            and int(out["rays"]) == ref["rays"])
+    say(11, f"{tag}, {name} mesh {tuple(mesh.mesh.shape)}: frame rays "
+            f"{int(out['rays'])}, launches {launches}; image, bitmap and "
+            f"rays bitwise equal to phase 4's: {same}")
+    if not (same and launches["tilemt"] > 0 and launches["banded"] > 0):
+        raise AssertionError(f"{tag}: the {name} sharded frame failed")
+    err, _, _ = check_batches(f"11, {tag}", captured)
+    ms = cuda_ms(frame, FRAMES)
+    walls = []
+    for _ in range(FRAMES):
+        pmesh.barrier(mesh)
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    say(11, f"{tag}, {name} mesh: {ms:.3f} ms/frame by CUDA events on this "
+            f"rank (mean of {FRAMES}); host clock of the whole sharded frame"
+            f" min {min(walls):.3f} median {statistics.median(walls):.3f} "
+            f"ms [{card}]")
+    return dict(launches=launches, err=err, ms=ms, wall_min=min(walls),
+                wall_median=statistics.median(walls))
+
+
+def sharded_grads(pmesh, mesh, scene, cam, ref, tag, card, work):
+    """One rank's part of the sharded training step, 3 recovery steps with
+    a resume, and BASELINE #5 through vertex_grad(mesh=), each held against
+    phase 10's one-device result.  Returns the rank's record."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch import sampling
+    from mobileraytracer_tpu_torch.diff import geom
+    from mobileraytracer_tpu_torch.parallel import recover
+    dev = scene.device
+    size = SHARDED_SIZE
+    cfg = mrt.RenderConfig(width=size, height=size, spp=1,
+                           shader=C.SHADER_WHITTED, accelerator=C.ACC_BVH,
+                           nee_share=128)
+    gkey = sampling.prng_key(0, dev)
+    kd0, target = ref["kd0"].to(dev), ref["target"].to(dev)
+    rel = lambda a, b: abs(a - b) / abs(b)
+
+    s0 = scene.replace(materials=scene.materials.replace(kd=kd0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g = pmesh.train_step_sharded(s0, cam, cfg, gkey, target, mesh)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    checks = [("loss", rel(float(loss), ref["train_loss"]) <= GRAD_LOSS_RTOL,
+               rel(float(loss), ref["train_loss"]))]
+    checks += [(k, *grads_close(g[k], ref["train"][k].numpy()))
+               for k in ("kd", "le")]
+    say(11, f"{tag}: train_step_sharded at {size}x{size} (kd from 0.5) in "
+            f"{step_s:.3f} s (host clock, first call); loss {float(loss):.7f}"
+            f" (one device {ref['train_loss']:.7f}); max abs err "
+            + ", ".join(f"{k} {e:.3e}" for k, _, e in checks)
+            + f"; within the CPU tests' tolerance: "
+              f"{all(ok for _, ok, _ in checks)} [{card}]")
+    if not all(ok for _, ok, _ in checks):
+        raise AssertionError(f"{tag}: the sharded step differs")
+
+    ck = work / "opt.npz"
+    kw = dict(steps=3, params_subset=("kd",), learning_rate=0.05,
+              base_key=gkey, init_params={"kd": kd0},
+              checkpoint_path=str(ck), checkpoint_every=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p3, losses = recover.recover_materials(scene, cam, cfg, target, mesh,
+                                           **kw)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / 3
+    same = pmesh.same_on_every_rank(p3, mesh)
+    t0 = time.perf_counter()
+    p3r, losses_r = recover.recover_materials(scene, cam, cfg, target, mesh,
+                                              resume=True, **kw)
+    torch.cuda.synchronize()
+    resumed_s = time.perf_counter() - t0
+    resumed = (torch.equal(p3["kd"], p3r["kd"])
+               and np.array_equal(losses, losses_r))
+    close = bool(np.allclose(losses, ref["losses"].numpy(),
+                             rtol=GRAD_LOSS_RTOL, atol=0.0))
+    say(11, f"{tag}: recover_materials(mesh=), 3 steps: losses "
+            f"{losses.tolist()} (one device {ref['losses'].tolist()}, within "
+            f"rtol {GRAD_LOSS_RTOL}: {close}), {per_step:.3f} s/step (host "
+            f"clock, checkpoint included; one device {ref['per_step']:.3f});"
+            f" kd bitwise equal on every rank: {same}; resumed from the "
+            f"step-2 checkpoint, step 3 bitwise equal: {resumed} (the "
+            f"resumed call, its one step: {resumed_s:.3f} s) [{card}]")
+    if not (close and same and resumed):
+        raise AssertionError(f"{tag}: the sharded recovery failed")
+
+    keep = geom.edge_topology(scene.triangles)
+    vkw = dict(edge_samples=8, edge_keep=keep, edge_budget=4096,
+               shadow_edges=True, shadow_budget=1024)
+
+    def vg():
+        return geom.vertex_grad(scene, cam, cfg, gkey, mesh=mesh, **vkw)
+
+    vg()                                            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    ms = event_ms(lambda: out.update(r=vg()))
+    peak = torch.cuda.max_memory_allocated()
+    vloss, vgr = out["r"]
+    checks = [("loss", rel(float(vloss), ref["vg_loss"]) <= GRAD_LOSS_RTOL,
+               rel(float(vloss), ref["vg_loss"]))]
+    checks += [(k, *grads_close(vgr[k], ref["vg"][k].numpy())) for k in vgr]
+    say(11, f"{tag}: BASELINE #5 through vertex_grad(mesh=): {ms:.3f} ms "
+            f"by CUDA events ({size * size / (ms / 1e3) / 1e6:.6f} Mpixel-grads/s;"
+            f" one device {ref['vg_ms']:.3f} ms), peak memory {peak} bytes "
+            f"({peak / 2**30:.3f} GiB) on this rank; max abs err "
+            + ", ".join(f"{k} {e:.3e}" for k, _, e in checks)
+            + f"; within the CPU tests' tolerance of phase 10's: "
+              f"{all(ok for _, ok, _ in checks)} [{card}]")
+    if not all(ok for _, ok, _ in checks):
+        raise AssertionError(f"{tag}: the sharded vertex gradients differ")
+    return dict(step_s=step_s, per_step=per_step, resumed_s=resumed_s,
+                vg_ms=ms, peak=peak)
+
+
+def sharded_rank(rank, world, backend, work, jobs, card):
+    """Phase 11's rank `rank` of `world`: joins the job, builds the
+    conference proxy (checked equal on every rank), then runs the 1-D
+    frame and `jobs` and writes its record to work/rank{rank}.json.
+    Raises on any failed check."""
+    import datetime
+    from mobileraytracer_tpu_torch import bench_scenes, sampling
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import _build
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.parallel import mesh as pmesh
+    work = pathlib.Path(work)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    pmesh.distributed_init(f"file://{work / 'store'}", world, rank,
+                           backend=backend,
+                           timeout=datetime.timedelta(seconds=SHARDED_S))
+    meshes = {"1-D": pmesh.make_mesh()}
+    if "2-D" in jobs:
+        meshes["2-D"] = pmesh.make_mesh_2d(n_hosts=world)
+    dev = pmesh.rank_device()
+    tag = f"{backend} rank {rank} of {world} on {dev}"
+    ref = torch.load(work.parent / "ref.pt")
+    _build.load()
+    t0 = time.perf_counter()
+    scene, cam, _ = bench_scenes.conference_proxy()
+    scene = bt.build(scene, device=dev)
+    cam = cam.to(dev)
+    pmesh.check_replicated(scene, meshes["1-D"])
+    say(11, f"{tag}: conference proxy built in "
+            f"{time.perf_counter() - t0:.2f} s, bitwise the same on every "
+            f"rank (digest all-gathered)")
+    cfg = mrt.RenderConfig(width=SHARDED_SIZE, height=SHARDED_SIZE, spp=1,
+                           shader=C.SHADER_WHITTED, accelerator=C.ACC_BVH,
+                           nee_share=128, nee_share_secondary=True)
+    key = sampling.prng_key(0, dev)
+    rec = {name: sharded_frame(pmesh, mesh, name, scene, cam, cfg, key, ref,
+                               tag, card)
+           for name, mesh in meshes.items()}
+    if "grads" in jobs:
+        rec["grads"] = sharded_grads(pmesh, meshes["1-D"], scene, cam, ref,
+                                     tag, card, work)
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    torch.distributed.destroy_process_group()
+
+
+def sharded_phase(frame4, frame_ms, grad_ref, card):
+    """Phase 11: the sharded forms on the one card, each job's ranks
+    sharing cuda:0.  Returns ({kind: launches in the 2-rank gloo 1-D frame,
+    summed over its ranks}, {kind: max abs err of the ranks' batches
+    against the plain versions})."""
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp())
+    torch.save(dict(frame4, **grad_ref), root / "ref.pt")
+    torch.cuda.empty_cache()
+    recs = []
+    for backend, world, jobs in SHARDED_JOBS:
+        work = root / f"{backend}{world}"
+        work.mkdir()
+        t0 = time.perf_counter()
+        spawn_ranks(sharded_rank, (world, backend, str(work), jobs, card),
+                    world, SHARDED_S)
+        recs.append((backend, [json.loads((work / f"rank{r}.json").read_text())
+                               for r in range(world)]))
+        say(11, f"the {backend} job of {world} rank(s) took "
+                f"{time.perf_counter() - t0:.1f} s")
+    for backend, rs in recs:
+        for r, rec in enumerate(rs):
+            say(11, f"{backend} rank {r}: " + "; ".join(
+                f"{name} frame {f['ms']:.3f} ms by CUDA events, host clock "
+                f"median {f['wall_median']:.3f} ms"
+                for name, f in rec.items() if name != "grads")
+                + f" (phase 6, one device: {frame_ms:.3f} ms/frame)"
+                + (f"; vertex_grad {rec['grads']['vg_ms']:.3f} ms (phase "
+                   f"10: {grad_ref['vg_ms']:.3f} ms)" if "grads" in rec
+                   else "") + f" [{card}]")
+    first = [rec["1-D"] for rec in recs[0][1]]
+    launches = {k: sum(r["launches"][k] for r in first) for k in KERNELS}
+    err = {}
+    for _, rs in recs:
+        for rec in rs:
+            for name, f in rec.items():
+                for k, e in f.get("err", {}).items():
+                    err[k] = max(err.get(k, 0.0), e)
+    say(11, f"launches in the 2-rank gloo 1-D frame, summed over its ranks: "
+            f"{launches}; phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return launches, err
 
 

@@ -19,8 +19,15 @@ Gumbel-max draw of `jax.random.categorical` (threefry.categorical), so the
 same key picks the same edges in both packages.  Jacobians of the factor
 map come from torch.func (jacrev, and jacfwd for the shadow curve) under
 vmap, as the JAX package takes them; the boundary terms are values, not
-taped.  Only the one-device form is ported: `mesh` other than None raises
-NotImplementedError naming ROADMAP.md Queue 1, item 14.
+taped.
+
+With `mesh` (parallel/mesh.py) the pixel lanes of the interior and the
+silhouette probes shard over the ranks, as the JAX package's shard_map
+shards them; the edge draws and the shadow term run whole on every rank.
+The probes' radiance is all-gathered; the interior's loss and vertex
+gradients are each rank's autograd over its own lanes, all-reduced (what
+shard_map's transpose does for the replicated vertices), so no collective
+is on the tape.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from .. import constants as C
 from .. import sampling, threefry
 from ..cameras import fast_arctan
 from ..ops.intersect import _cross, _dot
+from ..parallel import mesh as pmesh
 from ..shaders import common
 from ..shaders.engine import make_tracer, trace_image_sample
 from ..types import (CAMERA_PERSPECTIVE, Camera, RenderConfig, Scene,
@@ -58,13 +66,6 @@ def _timed(part: str, device):
     yield
     end.record()
     EVENTS.setdefault(part, []).append((start, end))
-
-
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded vertex gradients (mesh=) are not ported yet (ROADMAP.md"
-            " Queue 1, item 14); pass mesh=None")
 
 
 def _det(a, b, c):
@@ -166,11 +167,28 @@ def scene_with_vertices(scene: Scene, verts: Dict[str, torch.Tensor]) -> Scene:
     return scene.replace(triangles=tris)
 
 
+def _shard_rays(q: torch.Tensor, keys, mesh):
+    """This rank's part of the batch (q, keys) padded to a multiple of the
+    mesh size with zero q and copies of keys[:1] (the JAX package's
+    padding), and how many of its lanes are real (the padding is last)."""
+    n, b = mesh.size(), q.shape[0]
+    bp = -(-b // n) * n
+    if bp != b:
+        q = torch.cat([q, q.new_zeros((bp - b, 2))], 0)
+        keys = torch.cat([keys, keys[:1].expand(bp - b, *keys.shape[1:])], 0)
+    sl = pmesh._lane_slice(bp, mesh)
+    return q[sl], keys[sl], max(0, min(sl.stop, b) - sl.start)
+
+
 def _mean_radiance(scene: Scene, camera: Camera, config: RenderConfig,
                    q: torch.Tensor, keys, mesh=None) -> torch.Tensor:
     """Radiance (B, 3) of the rays through factor points q (B, 2), by the
-    differentiable walk."""
-    _check_mesh(mesh)
+    differentiable walk.  With `mesh` each rank traces its shard and the
+    shards are all-gathered, off autograd's tape (the silhouette probes)."""
+    if mesh is not None:
+        q_l, k_l, _ = _shard_rays(q, keys, mesh)
+        rgb = _mean_radiance(scene, camera, config, q_l, k_l)
+        return pmesh.all_gather(rgb, mesh)[:q.shape[0]]
     o, d = rays_from_factors(camera, q)
     rgb, _ = trace_image_sample(scene, config, o, d, keys,
                                 differentiable=True)
@@ -365,13 +383,15 @@ def _shadow_boundary_term(scene: Scene, camera: Camera, config: RenderConfig,
 
 def _boundary_terms(verts, scene, camera, base_key, ek_arr, *, config,
                     edge_samples, edge_eps, edge_budget, shadow_edges,
-                    shadow_budget):
+                    shadow_budget, mesh=None):
     """The silhouette (and with `shadow_edges` the shadow) boundary
-    gradient, a dict of (N, 3) per vertex slot."""
+    gradient, a dict of (N, 3) per vertex slot; with `mesh` the silhouette
+    probes are sharded and the shadow term is not."""
     dev = verts["va"].device
     with _timed("silhouette", dev):
         g_bnd = _silhouette_term(verts, scene, camera, base_key, ek_arr,
-                                 config, edge_samples, edge_eps, edge_budget)
+                                 config, edge_samples, edge_eps, edge_budget,
+                                 mesh)
     if shadow_edges:
         # Shadow-edge importance: world-space edge length.
         e0 = torch.cat([verts["va"], verts["vb"], verts["vc"]], 0)
@@ -386,7 +406,7 @@ def _boundary_terms(verts, scene, camera, base_key, ek_arr, *, config,
 
 
 def _silhouette_term(verts, scene, camera, base_key, ek_arr, config,
-                     edge_samples, edge_eps, edge_budget):
+                     edge_samples, edge_eps, edge_budget, mesh=None):
     """The primary (silhouette) edges' boundary gradient: every kept edge,
     or `edge_budget` length-importance draws, probed at `edge_samples`
     points."""
@@ -428,8 +448,8 @@ def _silhouette_term(verts, scene, camera, base_key, ek_arr, config,
     pkeys = sampling.ray_key(
         base_key, torch.arange(probe_in.shape[0], dtype=torch.int32,
                                device=dev), 1)
-    l_in = _mean_radiance(scene, camera, config, probe_in, pkeys)
-    l_out = _mean_radiance(scene, camera, config, probe_out, pkeys)
+    l_in = _mean_radiance(scene, camera, config, probe_in, pkeys, mesh)
+    l_out = _mean_radiance(scene, camera, config, probe_out, pkeys, mesh)
     dl = torch.mean(l_in - l_out, -1).reshape(-1, s)
     dl = dl * pixel_density(camera, qs) * viewport_mask(camera, config, qs)
 
@@ -447,12 +467,13 @@ def _silhouette_term(verts, scene, camera, base_key, ek_arr, config,
 
 
 def _interior(scene: Scene, camera: Camera, config: RenderConfig, verts,
-              keys, u, v, pixel_chunk: Optional[int] = None):
+              keys, u, v, pixel_chunk: Optional[int] = None, mesh=None):
     """(loss, {slot: dL/dv}) of L = mean radiance of the jitterless pixel
     rays, by autograd through the differentiable walk, in one pass or in
     chunks of `pixel_chunk` lanes (a multiple of 128): L is a mean over
     every pixel, so its gradient is the sum of the chunks' gradients of
-    sum(rgb) / (3 B)."""
+    sum(rgb) / (3 B).  With `mesh` each chunk is sharded: each rank takes
+    the gradient of its own lanes' sum, and the sums are all-reduced."""
     b_pix = u.shape[0]
     ck = b_pix
     if pixel_chunk is not None and pixel_chunk < b_pix:
@@ -465,15 +486,23 @@ def _interior(scene: Scene, camera: Camera, config: RenderConfig, verts,
         uc, vc, kc = u[lo:lo + ck], v[lo:lo + ck], keys[lo:lo + ck]
         qs = torch.stack([fast_arctan(camera.param_u * (uc - 0.5)),
                           fast_arctan(camera.param_v * (0.5 - vc))], -1)
+        if mesh is not None:
+            qs, kc, real = _shard_rays(qs, kc, mesh)
         rgb = _mean_radiance(scene_with_vertices(scene, leaves), camera,
                              config, qs, kc)
-        lc = torch.mean(rgb) if ck == b_pix else torch.sum(rgb) / denom
+        if mesh is not None:
+            rgb = rgb[:real]
+        lc = (torch.mean(rgb) if ck == b_pix and mesh is None
+              else torch.sum(rgb) / denom)
         loss = loss + lc.detach()
         if lc.requires_grad:        # DiffuseMaterial's flat colour has none
             gc = torch.autograd.grad(lc, list(leaves.values()),
                                      allow_unused=True)
             g_int = {k: g_int[k] if g is None else g_int[k] + g
                      for k, g in zip(g_int, gc)}
+    if mesh is not None:
+        g_int = pmesh.reduce_sums(dict(g_int, _loss=loss), mesh)
+        loss = g_int.pop("_loss")
     return loss, g_int
 
 
@@ -494,9 +523,9 @@ def vertex_grad(scene: Scene, camera: Camera, config: RenderConfig,
     to each side in factor space; `edge_keep` a (3N,) mask from
     `edge_topology`; `edge_budget` draws that many edges by length
     importance instead of enumerating all 3N; `shadow_edges` adds the
-    first-bounce shadow term with `shadow_budget` draws."""
+    first-bounce shadow term with `shadow_budget` draws.  With `mesh`
+    every rank of it calls this and gets the whole result."""
     from ..renderer import _pixel_order
-    _check_mesh(mesh)
     dev = scene.device
     camera = camera.to(dev)
     base_key = base_key.to(dev)
@@ -505,7 +534,7 @@ def vertex_grad(scene: Scene, camera: Camera, config: RenderConfig,
     keys = sampling.ray_key(base_key, pids, 0)
     with _timed("interior", dev):
         loss, g_int = _interior(scene, camera, config, verts, keys, u, v,
-                                pixel_chunk)
+                                pixel_chunk, mesh)
 
     n_tri = verts["va"].shape[0]
     if edge_keep is None:
@@ -519,7 +548,7 @@ def vertex_grad(scene: Scene, camera: Camera, config: RenderConfig,
             camera, base_key, ek_arr, config=config,
             edge_samples=edge_samples, edge_eps=edge_eps,
             edge_budget=edge_budget, shadow_edges=shadow_edges,
-            shadow_budget=shadow_budget)
+            shadow_budget=shadow_budget, mesh=mesh)
     valid = scene.triangles.valid.to(torch.bool)[:, None]
     grads = {k: torch.where(valid, g_int[k] + g_bnd[k], 0.0) for k in g_int}
     return loss, grads

@@ -1,3 +1,4 @@
-"""Differentiable rendering's training step and material recovery, on one
-device (the sharded forms are ROADMAP.md Queue 1, item 14)."""
+"""Meshes over torch.distributed, the sharded frame, and differentiable
+rendering's training step and material recovery, on one device or sharded
+over a mesh."""
 from . import mesh, recover  # noqa: F401

@@ -1,15 +1,20 @@
-"""Material recovery by differentiable rendering on one device (port of
-`mobileraytracer_tpu/parallel/recover.py`, BASELINE.md config #4's
-inverse form).
+"""Material recovery by differentiable rendering (port of
+`mobileraytracer_tpu/parallel/recover.py`, BASELINE.md config #4's inverse
+form), on one device or sharded over a mesh (parallel/mesh.py).
 
 Each step renders the scene with the current materials, takes autograd's
-gradient of the loss of parallel/mesh.py and applies
-`torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)` (optax's `adam` up
-to rounding: PyTorch takes the bias corrections in float64), then clamps
-the parameters to their physical range: kd, ks, kt and ior to [0, 1], le
-to >= 0.  Step s draws with `fold_in(key, s)`, so a run resumed from a
-checkpoint (utils/checkpoint.py, the JAX package's layout) equals an
-uninterrupted one.  A state is (params, optimizer).
+gradient of the loss of parallel/mesh.py (all-reduced over the mesh) and
+applies `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)` (optax's
+`adam` up to rounding: PyTorch takes the bias corrections in float64),
+then clamps the parameters to their physical range: kd, ks, kt and ior to
+[0, 1], le to >= 0.  Over a mesh every rank keeps its own Adam, fed the
+same all-reduced gradient, and after each step the ranks compare a digest
+of their parameters; where the backend's sum was not bitwise the same on
+every rank, the mesh's first rank's state is broadcast.  Step s draws with
+`fold_in(key, s)`, so a run resumed from a checkpoint (utils/checkpoint.py,
+the JAX package's layout; over a mesh the first rank writes it and every
+rank reads it) equals an uninterrupted one.  A state is (params,
+optimizer).
 """
 from __future__ import annotations
 
@@ -35,22 +40,41 @@ def make_state(params: dict, learning_rate: float):
     return params, opt
 
 
+def agree(state, mesh) -> bool:
+    """Makes every rank of the mesh hold the first rank's (params, Adam):
+    compares a digest of the parameters and, where they differ, broadcasts
+    the parameters and Adam's moments and step count.  Returns whether they
+    had agreed already."""
+    params, opt = state
+    if pmesh.same_on_every_rank(params, mesh):
+        return True
+    with torch.no_grad():
+        for k in sorted(params):
+            pmesh.broadcast(params[k], mesh)
+            st = opt.state[params[k]]
+            for name in sorted(st):       # none before the first step
+                st[name] = pmesh.broadcast(
+                    st[name].to(params[k].device), mesh).to(st[name].device)
+    return False
+
+
 def make_recovery_step(scene: Scene, camera: Camera, config: RenderConfig,
-                       group=None, params_subset: Iterable[str] = ("kd", "le"),
+                       mesh=None, params_subset: Iterable[str] = ("kd", "le"),
                        learning_rate: float = 0.05, max_point=None):
     """Returns (step_fn, init_state): `step_fn(state, key, target) ->
     (state, loss)` with state = (params, optimizer).  Only the fields in
     `params_subset` are optimized; the rest of the material table stays
-    at the scene's values."""
-    pmesh.check_group(group)
+    at the scene's values.  With `mesh`, each rank traces its shard and
+    every rank returns the same state and loss."""
     full = pmesh.material_params(scene.materials)
     subset = tuple(params_subset)
 
     def step_fn(state, key, target):
         params, opt = state
-        prep = pmesh.prepared(scene, camera, config, key, target, max_point)
+        prep = pmesh.prepared(scene, camera, config, key, target, max_point,
+                              mesh)
         loss, grads = pmesh.loss_and_grads(dict(full, **params), scene,
-                                           config, prep, subset)
+                                           config, prep, subset, mesh)
         opt.zero_grad(set_to_none=True)
         for k in subset:
             params[k].grad = grads[k]
@@ -58,13 +82,15 @@ def make_recovery_step(scene: Scene, camera: Camera, config: RenderConfig,
         with torch.no_grad():
             for k in subset:
                 params[k].clamp_(0.0, None if k == "le" else 1.0)
+        if mesh is not None:
+            agree((params, opt), mesh)
         return (params, opt), loss
 
     return step_fn, make_state({k: full[k] for k in subset}, learning_rate)
 
 
 def recover_materials(scene: Scene, camera: Camera, config: RenderConfig,
-                      target_image, group=None, steps: int = 200,
+                      target_image, mesh=None, steps: int = 200,
                       params_subset: Iterable[str] = ("kd",),
                       learning_rate: float = 0.05, base_key=None,
                       init_params: Optional[dict] = None,
@@ -73,11 +99,12 @@ def recover_materials(scene: Scene, camera: Camera, config: RenderConfig,
                       max_point=None) -> Tuple[dict, np.ndarray]:
     """Runs the recovery loop; returns (recovered params, per-step losses).
     With `checkpoint_path` the state, step and losses are saved every
-    `checkpoint_every` steps, and `resume=True` continues from that file."""
+    `checkpoint_every` steps (over a mesh by its first rank, the others
+    waiting at a barrier), and `resume=True` continues from that file."""
     from ..utils import checkpoint as ckpt
 
     step_fn, state = make_recovery_step(
-        scene, camera, config, group, params_subset=params_subset,
+        scene, camera, config, mesh, params_subset=params_subset,
         learning_rate=learning_rate, max_point=max_point)
     if init_params is not None:
         dev = scene.device
@@ -97,5 +124,8 @@ def recover_materials(scene: Scene, camera: Camera, config: RenderConfig,
         state, loss = step_fn(state, sampling.fold_in(key, s), target)
         losses.append(float(loss))
         if checkpoint_path and (s + 1) % checkpoint_every == 0:
-            ckpt.save_opt_state(checkpoint_path, state, s + 1, losses)
+            if mesh is None or pmesh._shard_index(mesh) == 0:
+                ckpt.save_opt_state(checkpoint_path, state, s + 1, losses)
+            if mesh is not None:
+                pmesh.barrier(mesh)
     return {k: p.detach() for k, p in state[0].items()}, np.asarray(losses)

@@ -98,32 +98,33 @@ def render_sample(scene: Scene, camera: Camera, config: RenderConfig,
                          differentiable=differentiable)
 
 
-def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
-                 base_key: torch.Tensor, max_point=None):
-    """Full frame at `config.spp` samples, on the scene's device.  Returns
-    {"image": (H, W, 3) f32, "bitmap": (H, W) int32 ABGR, "rays": () int32
-    total casted rays}.  With `accumulation="int_parity"` the samples
-    average into the reference's integer bitmap and the image is that
-    bitmap unpacked."""
-    w, h = config.width, config.height
-    dev = scene.device
-    camera = camera.to(dev)
-    base_key = base_key.to(dev)
-    _, _, _, inv = _pixel_order(config, dev)
-    int_parity = config.accumulation == "int_parity"
-    if int_parity:
-        accum = torch.zeros((w * h,), dtype=torch.int32, device=dev)
+def accumulate_samples(scene: Scene, camera: Camera, config: RenderConfig,
+                       base_key: torch.Tensor, u, v, pixel_ids,
+                       max_point=None):
+    """The `config.spp` samples of the lanes (u, v, pixel_ids) averaged into
+    a film: (float32 (B, 3) film, or with `accumulation="int_parity"` the
+    reference's int32 ABGR bitmap (B,); casted rays, () int32)."""
+    b = u.shape[0]
+    if config.accumulation == "int_parity":
+        accum = torch.zeros((b,), dtype=torch.int32, device=u.device)
         avg = film.incremental_avg_int
     else:
-        accum = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+        accum = torch.zeros((b, 3), dtype=torch.float32, device=u.device)
         avg = film.incremental_avg_float
-    rays = torch.zeros((), dtype=torch.int32, device=dev)
+    rays = torch.zeros((), dtype=torch.int32, device=u.device)
     for s in range(config.spp):
-        rgb, r = render_sample(scene, camera, config, base_key, s,
-                               max_point)
+        rgb, r = sample_pixels(scene, camera, config, base_key, s, u, v,
+                               pixel_ids, max_point=max_point)
         accum = avg(accum, rgb, s + 1)
         rays = rays + r
-    if int_parity:
+    return accum, rays
+
+
+def finish_frame(accum: torch.Tensor, rays: torch.Tensor, inv: torch.Tensor,
+                 config: RenderConfig) -> dict:
+    """render_frame's dict from the whole film in lane order."""
+    w, h = config.width, config.height
+    if config.accumulation == "int_parity":
         bitmap = accum[inv.long()]
         image = film.unpack_abgr(bitmap)
     else:
@@ -132,6 +133,20 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
     return {"image": image.reshape(h, w, 3),
             "bitmap": bitmap.reshape(h, w),
             "rays": rays}
+
+
+def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
+                 base_key: torch.Tensor, max_point=None):
+    """Full frame at `config.spp` samples, on the scene's device.  Returns
+    {"image": (H, W, 3) f32, "bitmap": (H, W) int32 ABGR, "rays": () int32
+    total casted rays}.  With `accumulation="int_parity"` the samples
+    average into the reference's integer bitmap and the image is that
+    bitmap unpacked."""
+    dev = scene.device
+    u, v, pids, inv = _pixel_order(config, dev)
+    accum, rays = accumulate_samples(scene, camera.to(dev), config,
+                                     base_key.to(dev), u, v, pids, max_point)
+    return finish_frame(accum, rays, inv, config)
 
 
 class Renderer:

@@ -2,7 +2,8 @@
 on the card, and frames of the PathTracer and of the grid and escape-index
 BVH on the card.  Imports neither jax nor the JAX package (nor does
 test_torch_kernel_design, whose hand-made blocks it uses), so it runs on a
-machine with PyTorch for CUDA alone:
+machine with PyTorch for CUDA alone (the last test starts two ranks of
+tests/torch_mesh_worker.py, which imports no jax either):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -s
 
@@ -527,3 +528,25 @@ def test_train_step_on_the_card_equals_plain_versions(cuda_scene):
         assert torch.isfinite(g[k]).all()
         assert torch.equal(g[k], g_p[k]), k
     assert float(g["kd"].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_frame_on_the_card(tmp_path):
+    """The cornell2 32x32 block-BVH frame of tests/torch_mesh_worker.py
+    sharded over 2 gloo ranks that share the card: both ranks launch the
+    banded kernel (a shard of 512 lanes takes full-batch steps, so no
+    tile-MT primary pass) and return the one-device frame bit for bit."""
+    import torch_mesh_worker as W
+    from mobileraytracer_tpu_torch.ops import _build
+    dev = _need_cuda()
+    _build.load()               # once, before the ranks look for it
+    got = W.finish(W.start(2, tmp_path, "cuda", ["frame"]), tmp_path, 600)
+    s, c = W.frame_scene(dev)
+    one = renderer.render_frame(s, c, RenderConfig(**W.FRAME_KW),
+                                sampling.prng_key(0, dev))
+    for r in got:
+        f = r["frame"]
+        assert f["launches"][1] > 0, f["launches"]
+        assert int(f["rays"]) == int(one["rays"])
+        assert torch.equal(f["bitmap"], one["bitmap"].cpu())
+        assert torch.equal(f["image"], one["image"].cpu())

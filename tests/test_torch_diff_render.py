@@ -1,6 +1,6 @@
 """Differentiable rendering of the PyTorch port against the JAX package on
 the CPU: material gradients of `render_loss_fn` through
-`train_step_sharded` (the port's group=None against JAX's one-device
+`train_step_sharded` (the port's mesh=None against JAX's one-device
 mesh), the differentiable walk's image and ray count, and the two
 accelerators that reverse mode rejects.
 
@@ -78,7 +78,7 @@ def config_kw(**kw):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_material_gradients_match_jax(case):
-    """train_step_sharded(group=None) against JAX's on make_mesh(1): the
+    """train_step_sharded(mesh=None) against JAX's on make_mesh(1): the
     loss and the gradients of le, kd, ks, kt and ior."""
     kw = config_kw(**CASES[case])
     js, jc = jax_scene(kw["accelerator"])
@@ -149,16 +149,6 @@ def test_reverse_mode_rejects_grid_and_escape_walk(acc):
         tmesh.train_step_sharded(tbuild(ts), tc, TConfig(**kw),
                                  sampling.prng_key(1),
                                  torch.from_numpy(target()))
-
-
-def test_sharded_forms_name_roadmap_item():
-    """Only the one-device mesh is ported."""
-    js, jc = jax_scene()
-    ts, tc = port_twin(js, jc)
-    cfg = TConfig(**config_kw())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmesh.train_step_sharded(ts, tc, cfg, sampling.prng_key(1),
-                                 torch.from_numpy(target()), group=object())
 
 
 def test_naive_scan_gradient_goes_to_the_winner():

@@ -257,10 +257,3 @@ def test_vertex_grad_matches_central_differences():
           - np.mean([mean_img(-eps, k) for k in keys])) / (2 * eps)
     assert abs(ad - fd) < max(0.12 * abs(fd), 2e-3), (ad, fd)
     assert abs(fd) > 1e-2
-
-
-def test_sharded_vertex_grad_names_roadmap_item():
-    ts, tc = twin(*one_triangle())
-    cfg = TConfig(width=16, height=16, shader=C.SHADER_DIFFUSE)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tgeom.vertex_grad(ts, tc, cfg, sampling.prng_key(0), mesh=object())
