@@ -124,6 +124,25 @@ raises and the script exits nonzero):
      CUDA events, Mpixel-grads/s and each rank's peak memory).  Each
      kernel's record gains `launches_sharded`, its launches in the 2-rank
      1-D frame summed over the ranks.
+ 12. the measuring commands: render_frame_auto on the main path's config
+     with a budget of a quarter of its cost (four 65,536-lane chunks),
+     with the launch counters reset just before: rays, image and bitmap
+     bitwise equal to phase 4's, tile-MT and banded launched in every
+     chunk, each chunk's largest batches bitwise equal to the plain
+     versions; `python -m mobileraytracer_tpu_torch.bench` (BASELINE #3)
+     as a subprocess, its lines echoed with the card, then its run() in
+     this process with the counters reset just before: rays per frame
+     equal to render_frame's over the bench's 9 frame keys, the last
+     frame bitwise equal; bench --shader 2 --spp 1 --reps 2 in this
+     process (the chunked path of BASELINE #4: 2 chunks of 131,072 lanes)
+     with the counters reset just before: a finite image, rays, both
+     kernels launched in every chunk, and each chunk's largest batches of
+     its primary step and bounces bitwise equal to the plain versions;
+     and `python -m mobileraytracer_tpu_torch.bench_grad` (BASELINE #5),
+     whose line must parse with a finite value > 0.  Each kernel's record
+     gains `launches_auto` (the chunked frame), `launches_bench` (the
+     in-process bench run) and `launches_bench_pt` (the in-process
+     chunked PathTracer bench run).
 The script's seconds, the card's name and power limit and then the
 kernels' JSON record come just before the last line, {"ok": true,
 "device": {...}}.
@@ -134,6 +153,7 @@ import os
 import pathlib
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -182,6 +202,14 @@ KERNELS = {
 
 def say(phase, msg):
     print(f"[phase {phase}] {msg}", flush=True)
+
+
+def card_name():
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
 
 
 def cuda_ms(fn, reps):
@@ -383,10 +411,7 @@ def main():
     # -- 1 ------------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    card = card_name()
     dev = torch.device("cuda:0")
     say(1, f"device {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
            f" cuda {torch.version.cuda}; nvidia-smi: {card}")
@@ -582,7 +607,17 @@ def main():
         rec["launches_sharded"] = shard_launches[kind]
         rec["max_abs_err"] = max(rec["max_abs_err"], shard_err.get(kind, 0.0))
 
-    say(11, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    # -- 12 -----------------------------------------------------------------
+    auto_launches, bench_launches, bench_pt_launches, bench_err = (
+        measuring_phase(scene, cam, cfg, key, frame4, card))
+    for rec in records:
+        kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
+        rec["launches_auto"] = auto_launches[kind]
+        rec["launches_bench"] = bench_launches[kind]
+        rec["launches_bench_pt"] = bench_pt_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], bench_err.get(kind, 0.0))
+
+    say(12, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1748,6 +1783,161 @@ def sharded_phase(frame4, frame_ms, grad_ref, card):
     say(11, f"launches in the 2-rank gloo 1-D frame, summed over its ranks: "
             f"{launches}; phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return launches, err
+
+
+# Phase 12: the seconds a measuring command may take as a subprocess.
+BENCH_S = 600
+
+
+def bench_line(module, args, card):
+    """Runs `python -m mobileraytracer_tpu_torch.<module> <args>` as a user
+    runs it, echoes what it printed with the card, and returns its JSON
+    line (a nonzero exit raises)."""
+    cmd = [sys.executable, "-m", f"mobileraytracer_tpu_torch.{module}",
+           *args]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=BENCH_S)
+    if run.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited {run.returncode}:"
+                             f" {run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    say(12, f"python {' '.join(cmd[1:])} ({time.perf_counter() - t0:.1f} s"
+            f" with its start): " + " | ".join(lines) + f" [{card}]")
+    return json.loads(lines[-1])
+
+
+def measuring_phase(scene, cam, cfg, key, frame4, card):
+    """Phase 12: render_frame_auto's chunked 512x512 frame, and the bench
+    and bench_grad commands.  Returns ({kind: launches in the chunked
+    frame}, {kind: launches in the in-process default bench run}, {kind:
+    launches in the in-process chunked PathTracer bench run}, {kind: max
+    abs err of the chunks' batches against the plain version})."""
+    from mobileraytracer_tpu_torch import bench, renderer, sampling
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    from mobileraytracer_tpu_torch.shaders import engine
+    t_phase = time.perf_counter()
+
+    # (a) The main path's frame in four chunks, each sample_pixels call of
+    # render_frame_auto one chunk (1 spp).
+    budget = renderer._dispatch_cost(cfg) / 4
+    n_chunks, chunk = renderer._chunk_geometry(cfg, budget)
+    sampler = renderer.sample_pixels
+    at = {"chunk": -1}
+
+    def next_chunk(*args, **kwargs):
+        at["chunk"] += 1
+        return sampler(*args, **kwargs)
+
+    captured = {}
+    renderer.sample_pixels = next_chunk
+    restore = recording(captured,
+                        lambda kind, any_hit: (kind, f"chunk {at['chunk']}"))
+    try:
+        K.reset_launches()
+        out = renderer.render_frame_auto(scene, cam, cfg, key, budget=budget)
+        torch.cuda.synchronize()
+        launches_auto = dict(K.LAUNCHES)
+    finally:
+        restore()
+        renderer.sample_pixels = sampler
+    same = (int(out["rays"]) == frame4["rays"]
+            and torch.equal(out["bitmap"].cpu(), frame4["bitmap"])
+            and torch.equal(out["image"].cpu(), frame4["image"]))
+    in_chunk = [sorted(k for k, w in captured if w == f"chunk {i}")
+                for i in range(n_chunks)]
+    say(12, f"render_frame_auto, budget {budget:.0f} units (cost "
+            f"{renderer._dispatch_cost(cfg):.0f}): {n_chunks} chunks of "
+            f"{chunk} lanes (sample_pixels calls: {at['chunk'] + 1}); rays "
+            f"{int(out['rays'])} (phase 4: {frame4['rays']}); image and "
+            f"bitmap bitwise equal to phase 4's: {same}; kernels in each "
+            f"chunk {in_chunk}; launches {launches_auto}")
+    if not (n_chunks >= 4 and at["chunk"] + 1 == n_chunks and same
+            and all(k == ["banded", "tilemt"] for k in in_chunk)):
+        raise AssertionError("the chunked frame failed its checks")
+    err, _, _ = check_batches(12, captured)
+
+    # (b) The default bench (BASELINE #3) as a user runs it, then in this
+    # process, held against render_frame over the bench's own frame keys
+    # fold_in(key, i) (phase 4's frame has the key itself).
+    bench_line("bench", [], card)
+    K.reset_launches()
+    rays_b, dt_b, out_b = bench.run(bench.build_parser().parse_args([]))
+    torch.cuda.synchronize()
+    launches_bench = dict(K.LAUNCHES)
+    refs = [renderer.render_frame(scene, cam, cfg, sampling.fold_in(key, i))
+            for i in range(9)]
+    want = sum(int(r["rays"]) for r in refs) // len(refs)
+    last = torch.equal(out_b["image"], refs[-1]["image"])
+    say(12, f"bench in this process: {rays_b} rays per frame (render_frame "
+            f"over the 9 frame keys: {want}), {dt_b * 1e3:.3f} ms/frame, "
+            f"{rays_b / dt_b:.1f} rays/s; last frame bitwise equal to "
+            f"render_frame's: {last}; launches {launches_bench} [{card}]")
+    if not (rays_b == want and last and launches_bench["tilemt"] > 0
+            and launches_bench["banded"] > 0):
+        raise AssertionError("the bench run failed its checks")
+
+    # (c) The PathTracer at 1 spp: above the budget, so two chunks of
+    # 131,072 lanes, whose compaction and NEE groups follow the chunk.  The
+    # largest batch of each kernel in each chunk's primary step and bounces
+    # is recorded and held against the plain versions.
+    args = ["--shader", "2", "--spp", "1", "--reps", "2"]
+    pt = dataclasses.replace(cfg, shader=C.SHADER_PATHTRACER)
+    n_pt, chunk_pt = renderer._chunk_geometry(pt,
+                                              renderer.DISPATCH_UNIT_BUDGET)
+    at = {"chunk": -1, "step0": 0}
+
+    def next_pt_chunk(*args, **kwargs):
+        at["chunk"] += 1
+        at["step0"] = engine.WALK["steps"]
+        return sampler(*args, **kwargs)
+
+    def pt_tag(kind, any_hit):
+        step = ("primary step" if engine.WALK["steps"] == at["step0"]
+                else "bounces")
+        return kind, (f"PathTracer chunk {at['chunk'] % n_pt} {step} "
+                      f"({'any-hit' if any_hit else 'closest'})")
+
+    captured_pt = {}
+    renderer.sample_pixels = next_pt_chunk
+    restore = recording(captured_pt, pt_tag)
+    try:
+        K.reset_launches()
+        rays_c, dt_c, out_c = bench.run(bench.build_parser().parse_args(args))
+        torch.cuda.synchronize()
+        launches_pt = dict(K.LAUNCHES)
+    finally:
+        restore()
+        renderer.sample_pixels = sampler
+    finite = bool(torch.isfinite(out_c["image"]).all())
+    in_chunk = [sorted({k for k, w in captured_pt
+                        if w.startswith(f"PathTracer chunk {i} ")})
+                for i in range(n_pt)]
+    say(12, f"bench {' '.join(args)}: dispatch cost "
+            f"{renderer._dispatch_cost(pt):.0f} units, {n_pt} chunks of "
+            f"{chunk_pt} lanes (sample_pixels calls over the bench's 4 "
+            f"frames: {at['chunk'] + 1}); {rays_c} rays per frame, "
+            f"{dt_c * 1e3:.3f} ms/frame with the recorders in place, "
+            f"{rays_c / dt_c:.1f} rays/s; image finite {finite}, mean "
+            f"{float(out_c['image'].mean()):.6f}; kernels in each chunk "
+            f"{in_chunk}; launches {launches_pt} [{card}]")
+    if not (renderer._dispatch_cost(pt) > renderer.DISPATCH_UNIT_BUDGET
+            and n_pt >= 2 and at["chunk"] + 1 == 4 * n_pt
+            and finite and rays_c > 0
+            and all(k == ["banded", "tilemt"] for k in in_chunk)):
+        raise AssertionError("the chunked PathTracer bench failed its checks")
+    err_pt, _, _ = check_batches(12, captured_pt)
+    for kind, e in err_pt.items():
+        err[kind] = max(err.get(kind, 0.0), e)
+
+    # (d) BASELINE #5 as a user runs it.
+    grad = bench_line("bench_grad", [], card)
+    if not (grad["metric"] == "mpixel_grads_per_second"
+            and np.isfinite(grad["value"]) and grad["value"] > 0):
+        raise AssertionError("bench_grad's line failed its checks")
+    say(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches_auto, launches_bench, launches_pt, err
 
 
 def mrt_primaries(scene, cam, cfg):

@@ -7,13 +7,19 @@ accelerators and takes material and vertex gradients, holding against it
 candidate windows, same traversal tie rules, same grid cells), and loads
 OBJ scenes from disk through the same conventions.  Module names mirror the JAX package's:
   cli             the command line (python -m mobileraytracer_tpu_torch.cli)
-  renderer        render_frame, Renderer and its lifecycle
+  bench           rays/s of a frame (python -m mobileraytracer_tpu_torch.bench;
+                  BASELINE #3, #4 and the grid datapoint)
+  bench_grad      Mpixel-grads/s of vertex gradients
+                  (python -m mobileraytracer_tpu_torch.bench_grad; BASELINE #5)
+  renderer        render_frame, render_frame_auto (frames in lane chunks),
+                  Renderer and its lifecycle
   loaders         OBJ/MTL scenes (native C++ parser), textures, cameras
   samplers        the reference's eight pixel samplers
   utils           phase timers and metrics, checkpoints (renders and
                   recovery runs), guards
   diff.geom       vertex gradients with edge sampling (BASELINE #5)
-  parallel        the training step and material recovery, one device
+  parallel        the training step and material recovery, and their
+                  sharded forms over torch.distributed
   shaders.engine  the wavefront walker (Whitted, NoShadows, PathTracer)
                   and the single-pass DepthMap and DiffuseMaterial
   shaders.common  materials and next-event estimation
@@ -28,7 +34,7 @@ OBJ scenes from disk through the same conventions.  Module names mirror the JAX 
 
 from . import bench_scenes, constants, scenes  # noqa: F401
 from .builder import SceneBuilder  # noqa: F401
-from .renderer import Renderer, render_frame  # noqa: F401
+from .renderer import Renderer, render_frame, render_frame_auto  # noqa: F401
 from .types import RenderConfig  # noqa: F401
 
 __version__ = "0.1.0"

@@ -149,6 +149,70 @@ def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
     return finish_frame(accum, rays, inv, config)
 
 
+# The JAX package's dispatch cost and budget, copied as they are: they
+# decide which frames render in chunks and where the chunks split, and a
+# PathTracer frame depends on its batch (the walker's compaction chunks and
+# NEE groups follow it), so they decide what such a frame is.  Units are
+# pixel-samples weighted by shader and accelerator.
+DISPATCH_UNIT_BUDGET = 4.0e6
+
+_SHADER_COST = {C.SHADER_NOSHADOWS: 1.0, C.SHADER_WHITTED: 2.0,
+                C.SHADER_PATHTRACER: 20.0, C.SHADER_DEPTHMAP: 0.5,
+                C.SHADER_DIFFUSE: 0.5}
+
+
+def _dispatch_cost(config: RenderConfig) -> float:
+    acc_w = 500.0 if config.accelerator == C.ACC_REGULAR_GRID else 1.0
+    return (float(config.width * config.height) * config.spp
+            * _SHADER_COST.get(config.shader, 2.0)
+            * max(config.samples_light, 1) * acc_w)
+
+
+def _chunk_geometry(config: RenderConfig, budget: float):
+    """(n_chunks, chunk) of a frame over `budget`: one sample's lanes cut
+    into n_chunks contiguous patch-major ranges of `chunk` lanes, a
+    multiple of the 128-ray tile that divides the whole tiles exactly."""
+    per_sample = _dispatch_cost(config) / config.spp
+    n_chunks = max(1, int(-(-per_sample // budget)))
+    unit = C.SUBTILE * max(1, 128 // C.SUBTILE)
+    n_units = config.width * config.height // unit
+    per = max(1, n_units // n_chunks)
+    while n_units % per:
+        per -= 1
+    return n_units // per, per * unit
+
+
+def render_frame_auto(scene: Scene, camera: Camera, config: RenderConfig,
+                      base_key: torch.Tensor, max_point=None,
+                      budget: float = DISPATCH_UNIT_BUDGET):
+    """`render_frame` of `config.rounded()`, in lane chunks when the
+    frame's dispatch cost exceeds `budget`; returns the same dict.  Each
+    chunk's lanes trace as one batch per sample, as the JAX package's
+    render_frame_auto traces them.  The lanes past the last whole chunk
+    (w·h not a multiple of 128) render as one shorter chunk, which the
+    JAX package never renders.  Chunks run one after another with all
+    their samples: each lane sees its samples in order, so the film is
+    the one a sample-major loop gives."""
+    config = config.rounded()
+    if _dispatch_cost(config) <= budget:
+        return render_frame(scene, camera, config, base_key, max_point)
+    dev = scene.device
+    camera, base_key = camera.to(dev), base_key.to(dev)
+    u, v, pids, inv = _pixel_order(config, dev)
+    n_chunks, chunk = _chunk_geometry(config, budget)
+    cuts = [i * chunk for i in range(n_chunks + 1)]
+    if cuts[-1] < u.shape[0]:
+        cuts.append(u.shape[0])
+    films, rays = [], 0
+    for lo, hi in zip(cuts, cuts[1:]):
+        film_c, r = accumulate_samples(scene, camera, config, base_key,
+                                       u[lo:hi], v[lo:hi], pids[lo:hi],
+                                       max_point)
+        films.append(film_c)
+        rays = rays + r
+    return finish_frame(torch.cat(films), rays, inv, config)
+
+
 class Renderer:
     """Progressive renderer, the reference's render loop and lifecycle
     (C_wrapper.cpp RayTrace and the JNI layer): renders sample by

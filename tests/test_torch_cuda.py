@@ -550,3 +550,28 @@ def test_two_rank_gloo_frame_on_the_card(tmp_path):
         assert int(f["rays"]) == int(one["rays"])
         assert torch.equal(f["bitmap"], one["bitmap"].cpu())
         assert torch.equal(f["image"], one["image"].cpu())
+
+
+@pytest.mark.cuda
+def test_chunked_frame_on_the_card_equals_fused(cuda_scene):
+    """render_frame_auto at 64x64 on the 20k proxy, Whitted with the main
+    path's NEE sharing, cut into four 1,024-lane chunks by its budget: each
+    chunk takes its own tile-MT primary pass, and the frame equals
+    render_frame's bit for bit."""
+    scene = cuda_scene[0]
+    dev = scene.device
+    cfg = RenderConfig(width=64, height=64, shader=C.SHADER_WHITTED,
+                       accelerator=C.ACC_BVH, nee_share=128,
+                       nee_share_secondary=True)
+    budget = renderer._dispatch_cost(cfg) / 4
+    assert renderer._chunk_geometry(cfg, budget) == (4, 1024)
+    cam = bench_scenes.conference_proxy(target_prims=20000)[1].to(dev)
+    key = sampling.prng_key(0, dev)
+    one = renderer.render_frame(scene, cam, cfg, key)
+    K.reset_launches()
+    out = renderer.render_frame_auto(scene, cam, cfg, key, budget=budget)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["tilemt"] == 4 and K.LAUNCHES["banded"] >= 4, \
+        K.LAUNCHES
+    for k in ("bitmap", "image", "rays"):
+        assert torch.equal(out[k], one[k]), k

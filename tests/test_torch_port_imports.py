@@ -26,7 +26,9 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) > 15
-    assert {"mobileraytracer_tpu_torch.diff.geom",
+    assert {"mobileraytracer_tpu_torch.bench",
+            "mobileraytracer_tpu_torch.bench_grad",
+            "mobileraytracer_tpu_torch.diff.geom",
             "mobileraytracer_tpu_torch.parallel.mesh",
             "mobileraytracer_tpu_torch.parallel.recover",
             "mobileraytracer_tpu_torch.utils.checkpoint"} <= set(mods)
