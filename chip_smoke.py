@@ -143,6 +143,21 @@ raises and the script exits nonzero):
      gains `launches_auto` (the chunked frame), `launches_bench` (the
      in-process bench run) and `launches_bench_pt` (the in-process
      chunked PathTracer bench run).
+ 13. the sweep: `python -m mobileraytracer_tpu_torch.sweep` at its
+     defaults (scenes 0 and 2 x Whitted and the PathTracer x ACC_NAIVE and
+     ACC_BVH, 256x256, 3 reps) as a subprocess, its lines and .dat rows
+     echoed: 8 rows in the JAX sweep's layout, finite positive render_s
+     and mrays_s; then the same sweep in this process through sweep.sweep
+     with the launch counters reset just before: each scene and shader's
+     ACC_NAIVE and ACC_BVH rows cast the same rays, tile-MT and banded
+     launched on every ACC_BVH row and no kernel on the others, and the
+     largest batch of each kernel and query kind in each row held bitwise
+     against the plain versions; and MobileRT's two statistical captures
+     through render_frame (cornell2 at 256x256, int_parity, ACC_NAIVE,
+     key 0): Whitted at 16 spp within test_golden.py's Monte-Carlo
+     tolerance, and the PathTracer at 64 spp by its 16x16 block means and
+     global channel bias.  Each kernel's record gains `launches_sweep`,
+     its launches in the in-process sweep.
 The script's seconds, the card's name and power limit and then the
 kernels' JSON record come just before the last line, {"ok": true,
 "device": {...}}.
@@ -617,7 +632,14 @@ def main():
         rec["launches_bench_pt"] = bench_pt_launches[kind]
         rec["max_abs_err"] = max(rec["max_abs_err"], bench_err.get(kind, 0.0))
 
-    say(12, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    # -- 13 -----------------------------------------------------------------
+    sweep_launches, sweep_err = sweep_phase(dev, card)
+    for rec in records:
+        kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
+        rec["launches_sweep"] = sweep_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], sweep_err.get(kind, 0.0))
+
+    say(13, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1938,6 +1960,157 @@ def measuring_phase(scene, cam, cfg, key, frame4, card):
         raise AssertionError("bench_grad's line failed its checks")
     say(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
     return launches_auto, launches_bench, launches_pt, err
+
+
+# Phase 13: the seconds the sweep may take as a subprocess.
+SWEEP_S = 600
+
+
+def sweep_phase(dev, card):
+    """Phase 13: the sweep command, the same sweep in this process on `dev`
+    with the kernels recorded, and MobileRT's two statistical captures on
+    `dev`.  Returns
+    ({kind: launches in the in-process sweep}, {kind: max abs err of its
+    batches against the plain version})."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import renderer, sampling, scenes, sweep
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    args = sweep.build_parser().parse_args([])
+    configs = [(s, sh, acc) for s in args.scenes for sh in args.shaders
+               for acc in args.accs]
+
+    # (a) The command at its defaults, as a user runs it.
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = pathlib.Path(tmp) / "sweep.dat"
+        cmd = [sys.executable, "-m", "mobileraytracer_tpu_torch.sweep",
+               "--out", str(path)]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=SWEEP_S)
+        if run.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                                 f"{run.returncode}: {run.stderr[-3000:]}")
+        dat = path.read_text().splitlines()
+    say(13, f"python -m mobileraytracer_tpu_torch.sweep "
+            f"({time.perf_counter() - t0:.1f} s with its start): "
+            + " | ".join(run.stdout.strip().splitlines()) + f" [{card}]")
+    for line in dat:
+        say(13, f"sweep.dat: {line}")
+    rows = [line.split() for line in dat[1:]]
+    timed = np.array([[float(x) for x in r[8:]] for r in rows])
+    if not (dat[0] == sweep.HEADER.rstrip("\n") and len(rows) == 8
+            and [tuple(map(int, r[:3])) for r in rows] == configs
+            and timed.shape == (8, 2) and np.isfinite(timed).all()
+            and (timed > 0).all()):
+        raise AssertionError("the sweep's .dat failed its checks")
+
+    # (b) The same sweep in this process, each ACC_BVH row's launches
+    # counted and the largest batch of each kernel and query kind in each
+    # row recorded and held against the plain versions.
+    at, per_row = {}, {}
+
+    class Watched(renderer.Renderer):
+        def __init__(self, scene, cam, cfg, **kwargs):
+            at["row"] = (cfg.scene_id, cfg.shader, cfg.accelerator)
+            per_row.setdefault(at["row"], dict.fromkeys(K.LAUNCHES, 0))
+            super().__init__(scene, cam, cfg, **kwargs)
+
+        def render(self, *a, **kw):
+            before = dict(K.LAUNCHES)
+            try:
+                return super().render(*a, **kw)
+            finally:
+                for k, n in K.LAUNCHES.items():
+                    per_row[at["row"]][k] += n - before[k]
+
+    captured = {}
+    restore = recording(captured, lambda kind, any_hit: (
+        kind, f"scene {at['row'][0]} shader {at['row'][1]} "
+              f"{'any-hit' if any_hit else 'closest'}"))
+    sweep.Renderer = Watched
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = sweep.sweep(args.scenes, args.shaders, args.accs, args.size,
+                          args.spp, args.spl, args.reps, device=dev)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+    finally:
+        restore()
+        sweep.Renderer = renderer.Renderer
+    by = {(r.scene, r.shader, r.accelerator): r for r in got}
+    say(13, f"the sweep in this process ({sweep_s:.1f} s): " + "; ".join(
+        f"scene {s} shader {sh} acc {acc}: {by[s, sh, acc].total_rays} rays,"
+        f" median {by[s, sh, acc].render_s:.4f} s, "
+        f"{by[s, sh, acc].mrays_s:.4f} M rays/s, launches "
+        f"{per_row[s, sh, acc]}" for s, sh, acc in configs)
+        + f"; launches {launches} [{card}]")
+    same_rays = all(by[s, sh, C.ACC_NAIVE].total_rays
+                    == by[s, sh, C.ACC_BVH].total_rays
+                    for s, sh, _ in configs)
+    bvh_rows = [per_row[c] for c in configs if c[2] == C.ACC_BVH]
+    if not (list(by) == configs and same_rays and bvh_rows
+            and all(n["tilemt"] > 0 and n["banded"] > 0 for n in bvh_rows)
+            and all(sum(per_row[c].values()) == 0 for c in configs
+                    if c[2] != C.ACC_BVH)):
+        raise AssertionError("the in-process sweep failed its checks: ray "
+                             f"counts equal across accelerators {same_rays},"
+                             f" launches {per_row}")
+    err, _, _ = check_batches(13, captured)
+
+    # (c) MobileRT's two statistical captures, with test_golden.py's
+    # oracles (:167-174 and :255-275) at render_builtin's settings.
+    readings = {}
+    for name, sid, shader, spp in (
+            ("cornell2_whitted_256_16spp", C.SCENE_CORNELL2,
+             C.SHADER_WHITTED, 16),
+            ("cornell2_pt_256_64spp", C.SCENE_CORNELL2,
+             C.SHADER_PATHTRACER, 64)):
+        raw = np.fromfile(GOLD / f"{name}.bin", dtype=np.int32)
+        w, h = int(raw[0]), int(raw[1])
+        ref = unpack_bitmap(raw[2:].reshape(h, w))
+        sc, cm = scenes.load_builtin(sid, 1.0)
+        cfg = mrt.RenderConfig(width=w, height=h, spp=spp, shader=shader,
+                               accelerator=C.ACC_NAIVE, scene_id=sid,
+                               accumulation="int_parity")
+        t0 = time.perf_counter()
+        out = mrt.render_frame(sc.to(dev), cm, cfg,
+                               sampling.prng_key(0, dev),
+                               scenes.DEPTHMAP_MAX_POINT[sid])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ours = unpack_bitmap(out["bitmap"].cpu().numpy())
+        if shader == C.SHADER_WHITTED:
+            ok, mean, frac = golden_close(ours, ref, mean_tol=4.0 / 255,
+                                          outlier_tol=16.0 / 255,
+                                          outlier_frac=0.05)
+            what = (f"mean |diff| {mean * 255:.4f}/255 (limit 4), "
+                    f"{frac * 100:.4f}% of pixels past 16/255 (limit 5%)")
+        else:
+            blk = 16
+            rb = ref.reshape(h // blk, blk, w // blk, blk, 3).mean((1, 3))
+            ob = ours.reshape(h // blk, blk, w // blk, blk, 3).mean((1, 3))
+            ok, mean, frac = golden_close(ob, rb, mean_tol=6.0 / 255,
+                                          outlier_tol=24.0 / 255,
+                                          outlier_frac=0.08)
+            bias = float(np.abs((ours - ref).mean(axis=(0, 1))).max())
+            ok = ok and bias < 2.0 / 255
+            what = (f"16x16 block means: mean |diff| {mean * 255:.4f}/255 "
+                    f"(limit 6), {frac * 100:.4f}% of blocks past 24/255 "
+                    f"(limit 8%); global channel bias {bias * 255:.4f}/255 "
+                    f"(limit 2)")
+        readings[name] = ok
+        say(13, f"{name} through render_frame (int_parity, ACC_NAIVE, key "
+                f"0): {int(out['rays'])} rays in {secs:.3f} s; {what}; "
+                f"holds {ok} [{card}]")
+    if not all(readings.values()):
+        raise AssertionError(f"a statistical capture disagrees: {readings}")
+    say(13, f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
 
 
 def mrt_primaries(scene, cam, cfg):

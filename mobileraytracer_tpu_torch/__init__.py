@@ -11,6 +11,9 @@ OBJ scenes from disk through the same conventions.  Module names mirror the JAX 
                   BASELINE #3, #4 and the grid datapoint)
   bench_grad      Mpixel-grads/s of vertex gradients
                   (python -m mobileraytracer_tpu_torch.bench_grad; BASELINE #5)
+  sweep           builtin scenes x shaders x accelerators through the
+                  Renderer, one .dat row each
+                  (python -m mobileraytracer_tpu_torch.sweep)
   renderer        render_frame, render_frame_auto (frames in lane chunks),
                   Renderer and its lifecycle
   loaders         OBJ/MTL scenes (native C++ parser), textures, cameras
@@ -35,6 +38,8 @@ OBJ scenes from disk through the same conventions.  Module names mirror the JAX 
 from . import bench_scenes, constants, scenes  # noqa: F401
 from .builder import SceneBuilder  # noqa: F401
 from .renderer import Renderer, render_frame, render_frame_auto  # noqa: F401
-from .types import RenderConfig  # noqa: F401
+from .types import (Camera, Hit, Lights, Materials, Planes,  # noqa: F401
+                    RenderConfig, Scene, Spheres, Triangles,
+                    orthographic_camera, perspective_camera)
 
 __version__ = "0.1.0"

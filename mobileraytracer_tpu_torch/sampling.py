@@ -14,7 +14,15 @@ from . import threefry
 
 TWO_PI = 6.283185307179586
 
+# Purpose tags keep independent streams decorrelated: the JAX package's
+# table.  The pixel samplers take PURPOSE_PIXEL_JITTER; the walker passes
+# its own tags (shaders/engine.py), as the JAX package's walker does.
 PURPOSE_PIXEL_JITTER = 0
+PURPOSE_LIGHT_PICK = 1
+PURPOSE_LIGHT_POINT = 2
+PURPOSE_HEMISPHERE = 3
+PURPOSE_RUSSIAN_ROULETTE = 4
+PURPOSE_LOBE_PICK = 5
 
 fold_in = threefry.fold_in
 prng_key = threefry.prng_key

@@ -31,6 +31,7 @@ def test_every_module_imports_without_jax():
             "mobileraytracer_tpu_torch.diff.geom",
             "mobileraytracer_tpu_torch.parallel.mesh",
             "mobileraytracer_tpu_torch.parallel.recover",
+            "mobileraytracer_tpu_torch.sweep",
             "mobileraytracer_tpu_torch.utils.checkpoint"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
