@@ -158,6 +158,28 @@ raises and the script exits nonzero):
      tolerance, and the PathTracer at 64 spp by its 16x16 block means and
      global channel bias.  Each kernel's record gains `launches_sweep`,
      its launches in the in-process sweep.
+ 14. the two-level block BVH and the window knobs: the conference proxy
+     through block_bvh.build (build seconds) and the 512x512 Whitted frame
+     over it with the launch counters reset just before (finite, rays > 0,
+     no kernel launched: the module is plain PyTorch), ms/frame by CUDA
+     events (mean of 5 after a warm-up) and one profiled frame's device
+     busy time and idle share; its primaries against the exact block
+     traversal (never a closer hit; at equal t the same triangle, ties
+     aside; the lanes the budgets miss counted) and the first 4,096 of them
+     against the CPU (ids on 99.9% of lanes, t within 1e-5); then, with the
+     launch counters reset just before, phase 7's primaries and reversed
+     shadow rays through traverse under the JAX package's three window
+     settings, traverse_tilemt(top_s=16, top_m=64) and traverse_resident at
+     res_group 4, 8 and 16: hits and occlusion equal to the default
+     windows' (ids may differ only where t is bit-identical, coincident
+     triangles, or one ulp farther, the cut's rounding; occlusion only
+     where the default windows' blocker lies within one ulp of the
+     segment's end, as in phase 7), banded,
+     tile-MT and resident launched, each recorded batch
+     bitwise equal to its plain version, and the resident kernel's ms,
+     bound, registers and shared memory at each g_n.  Each kernel's record
+     gains `launches_block_bvh` and `launches_knobs`, and the resident
+     record `by_g_n`.
 The script's seconds, the card's name and power limit and then the
 kernels' JSON record come just before the last line, {"ok": true,
 "device": {...}}.
@@ -590,7 +612,9 @@ def main():
                               bound, rounds, card))
 
     # -- 7 ------------------------------------------------------------------
-    records += traversal_modes(scene, cfg, key, o, d, pk, pi, b, card)
+    records7, shadow7 = traversal_modes(scene, cfg, key, o, d, pk, pi, b,
+                                        card)
+    records += records7
 
     # -- 8 ------------------------------------------------------------------
     pt_launches, pt_err = shaders_phase(scene, cam, small, scam, key, card)
@@ -639,7 +663,18 @@ def main():
         rec["launches_sweep"] = sweep_launches[kind]
         rec["max_abs_err"] = max(rec["max_abs_err"], sweep_err.get(kind, 0.0))
 
-    say(13, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    # -- 14 -----------------------------------------------------------------
+    bvh_launches, knob_launches, knob_err, by_g_n = block_bvh_phase(
+        scene, cam, cfg, key, (o, d, pk, pi), shadow7, card)
+    for rec in records:
+        kind = next(k for k, v in KERNELS.items() if v["name"] == rec["name"])
+        rec["launches_block_bvh"] = bvh_launches[kind]
+        rec["launches_knobs"] = knob_launches[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], knob_err.get(kind, 0.0))
+        if kind == "resident":
+            rec["by_g_n"] = by_g_n
+
+    say(14, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -649,7 +684,10 @@ def main():
 
 def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
     """Phase 7: the "tilebw" and "resident" modes on the 512x512 primaries
-    and their NEE shadow batch.  Returns the two kernels' JSON records."""
+    and their NEE shadow batch.  Returns the two kernels' JSON records and
+    the shadow rays (o, d, max_dist, prev_kind, prev_id) of its last NEE
+    call, the timing loop's over the tile-MT primaries' hits (which differ
+    from the tilebw hits only on coincident triangles)."""
     from mobileraytracer_tpu_torch import renderer, sampling
     from mobileraytracer_tpu_torch.ops import block_traversal as bt
     from mobileraytracer_tpu_torch.ops import intersect as nv
@@ -683,7 +721,7 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
     shadow = {}
 
     def nee(hit, mode):
-        def occ(scene_, o_, d_, md, pk_, pi_):
+        def occ(scene_, o_, d_, md, pk_, pi_, coherent=False):
             blocked = bt.occluded_blocks(scene_, o_, d_, md, pk_, pi_,
                                          mode=mode)
             masks[mode] = blocked
@@ -814,7 +852,7 @@ def traversal_modes(scene, cfg, key, o, d, pk, pi, b, card):
            f"{cuda_ms(lambda: wrapped['tilebw'](*args), 10):.4f} ms, plain "
            f"PyTorch {cuda_ms(lambda: plain['tilebw'](*args), 3):.4f} ms "
            f"[{card}]")
-    return records
+    return records, shadow["rays"]
 
 
 def event_ms(fn):
@@ -2111,6 +2149,256 @@ def sweep_phase(dev, card):
         raise AssertionError(f"a statistical capture disagrees: {readings}")
     say(13, f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     return launches, err
+
+
+# Phase 14: JAX's three window settings (tests/test_pallas_bvh.py::
+# test_selection_knobs_stay_exact), the tile window of tile-MT, and the
+# resident kernel's bands per program.
+KNOB_SELS = ({"sel_st": 32, "top_s": 16, "top_m": 24},
+             {"sel_st": 128, "top_s": 16, "top_m": 24},
+             {"sel_st": 16, "top_s": 8, "top_m": 8})
+TILE_KNOBS = {"top_s": 16, "top_m": 64}
+RES_GROUPS = (4, 8, 16)
+BLOCK_BVH_SAMPLE = 4096
+
+
+def block_bvh_phase(scene, cam, cfg, key, primaries, shadow, card):
+    """Phase 14: (a) the conference proxy through ops/block_bvh (plain
+    PyTorch, no kernel): build seconds, the 512x512 Whitted frame timed and
+    profiled, its primaries against the exact block traversal and 4,096 of
+    them against the CPU; (b) the window knobs and res_group on phase 7's
+    primaries and reversed shadow rays, with the launch counters reset just
+    before: hits and occlusion equal to the default windows', every
+    recorded kernel batch bitwise equal to its plain version, the resident
+    kernel's ms, bound, registers and shared memory per g_n.  Returns
+    ({kind: launches in the block_bvh frame}, {kind: launches in (b)},
+    {kind: max abs err}, {g_n: resident record})."""
+    import mobileraytracer_tpu_torch as mrt
+    from mobileraytracer_tpu_torch import bench_scenes
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import _build
+    from mobileraytracer_tpu_torch.ops import block_bvh as bb
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.ops import intersect as nv
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    dev = scene.device
+    big = C.RAY_LENGTH_MAX
+    o, d, pk, pi = primaries
+
+    # (a) The two-level block BVH.
+    proxy, _, _ = bench_scenes.conference_proxy()
+    t0 = time.perf_counter()
+    sbb = bb.build(proxy, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    g = sbb.bvh
+    say(14, f"block_bvh.build on the conference proxy: {build_s:.2f} s; "
+            f"{g.num_supers} supers of {g.block_count.shape[1]} blocks of "
+            f"at most {g.block_size} triangles, top_s {g.top_s}, top_m "
+            f"{g.top_m}")
+
+    def frame():
+        return mrt.render_frame(sbb, cam, cfg, key)
+
+    K.reset_launches()
+    out = frame()
+    torch.cuda.synchronize()
+    bvh_launches = dict(K.LAUNCHES)
+    img = out["image"].cpu().numpy()
+    rays = int(out["rays"])
+    if not (np.isfinite(img).all()
+            and img.shape == (cfg.height, cfg.width, 3)
+            and rays > 0 and not any(bvh_launches.values())):
+        raise AssertionError(f"the block_bvh frame failed its checks: rays "
+                             f"{rays}, launches {bvh_launches}")
+    ms = cuda_ms(frame, FRAMES)
+    busy, _, top, _ = profile_device(frame)
+    say(14, f"{cfg.width}x{cfg.height} Whitted frame over block_bvh: "
+            f"{ms:.3f} ms/frame, "
+            f"{rays / (ms / 1e3) / 1e6:.4f} M rays/s ({rays} rays, mean of "
+            f"{FRAMES} frames by CUDA events after a warm-up; image mean "
+            f"{img.mean():.6f}; kernel launches {bvh_launches}); one frame "
+            f"under torch.profiler: device busy {busy:.3f} ms, idle share "
+            f"{1.0 - busy / ms:.3f}; largest device rows (ms): "
+            + "; ".join(f"{k[:60]} {v:.3f}" for k, (v, _) in top.items())
+            + f" [{card}]")
+
+    # Its primaries against the exact traversal: a budget can lose a hit
+    # but never finds a closer one; at equal t the hit triangle is the
+    # same (the two builds order the triangles differently, so the
+    # triangles' corners are compared).
+    t_b, id_b = bb.traverse_closest(g, sbb.triangles, o, d, big, pk, pi)
+    t_x, id_x = bt.traverse_tilemt(scene.bvh, scene.triangles, o, d, big,
+                                   pk, pi)
+
+    def corners(tris, ids):
+        i = ids.clamp(min=0).long()
+        return torch.cat([tris.point_a[i], tris.ab[i], tris.ac[i]], 1)
+
+    same_t = t_b == t_x
+    same_tri = (corners(sbb.triangles, id_b)
+                == corners(scene.triangles, id_x)).all(1) \
+        & ((id_b >= 0) == (id_x >= 0))
+    closer = int((t_b < t_x).sum())
+    missed = int((t_b > t_x).sum())
+    ties = int((same_t & ~same_tri).sum())
+    say(14, f"block_bvh primaries vs the exact block traversal on "
+            f"{o.shape[0]} rays: {closer} closer (must be 0), {missed} "
+            f"lanes whose hit lies past the budgets (a farther hit or "
+            f"none), {ties} lanes at equal t on another triangle "
+            f"(coincident or shared-edge ties)")
+    if closer or ties > o.shape[0] // 1000:
+        raise AssertionError("block_bvh primaries disagree with the exact "
+                             "traversal")
+    n = BLOCK_BVH_SAMPLE
+    cpu = sbb.to("cpu")
+    t_c, id_c = bb.traverse_closest(cpu.bvh, cpu.triangles, o[:n].cpu(),
+                                    d[:n].cpu(), big, pk[:n].cpu(),
+                                    pi[:n].cpu())
+    same = float((id_c == id_b[:n].cpu()).float().mean())
+    hit = id_c >= 0
+    rel = float(((t_c - t_b[:n].cpu()).abs() / t_c.abs())[hit].max())
+    say(14, f"the first {n} primaries on the CPU: ids equal on {same:.6f} "
+            f"of lanes (at least 0.999), t max relative difference {rel:.3e}"
+            f" (at most 1e-5)")
+    if same < 0.999 or rel > 1e-5:
+        raise AssertionError("block_bvh on the card disagrees with the CPU")
+
+    # (b) The window knobs and res_group, recorded.
+    wrapped = {"banded": K.traverse_banded, "tilemt": K.traverse_tilemt,
+               "resident": K.traverse_resident}
+    plain = {"banded": K.banded_plain, "tilemt": K.tilemt_plain,
+             "resident": K.resident_plain}
+    captured = {}
+    stage = {"tag": None}
+
+    def recorder(kind):
+        fn = wrapped[kind]
+
+        def rec(*args):
+            tag = (kind, stage["tag"])
+            if stage["tag"] and tag not in captured:
+                captured[tag] = tuple(a.clone() if torch.is_tensor(a) else a
+                                      for a in args)
+            return fn(*args)
+        return rec
+
+    so, sd, smd, spk, spi = shadow
+    smd = torch.as_tensor(smd, device=dev).expand(so.shape[0])
+    tris = scene.triangles
+    knob = lambda kw: ",".join(f"{k}={v}" for k, v in kw.items())
+
+    def closest_diff(t, ids, t_ref, id_ref):
+        """(lanes whose id differs, those of them at the bit-identical t
+        (coincident triangles, PARITY.md section 7) or one ulp farther: a
+        coarse bundle's window cut, computed in rounded float32, can sit
+        an ulp past a hit on an unlisted block's face)."""
+        diff = ids != id_ref
+        ulp = torch.nextafter(t_ref, torch.full_like(t_ref, torch.inf))
+        return int(diff.sum()), int((diff & ((t == t_ref) | (t == ulp)))
+                                    .sum())
+
+    def shadow_diff(occ, occ_ref):
+        """(lanes whose occlusion differs, those of them that the default
+        windows occlude with the naive oracle's blocker within one ulp of
+        the segment's end, which a per-ray window's exact slab bound
+        prunes, as phase 7's tile windows do)."""
+        lanes = torch.nonzero((occ >= 0) != (occ_ref >= 0))[:, 0]
+        t_n, id_n = nv.closest_triangles(tris, so[lanes], sd[lanes],
+                                         smd[lanes], spk[lanes], spi[lanes])
+        edge = ((id_n >= 0) & (occ_ref[lanes] >= 0)
+                & (torch.nextafter(t_n, torch.full_like(t_n, torch.inf))
+                   >= smd[lanes]))
+        return len(lanes), int(edge.sum())
+
+    diffs = {}
+    K.reset_launches()
+    for kind in wrapped:
+        setattr(K, f"traverse_{kind}", recorder(kind))
+    try:
+        t0, id0 = bt.traverse(scene.bvh, tris, o, d, big, pk, pi)
+        _, occ0 = bt.traverse(scene.bvh, tris, so, sd, smd, spk, spi,
+                              any_hit=True)
+        tm0, idm0 = bt.traverse_tilemt(scene.bvh, tris, o, d, big, pk, pi)
+        for sel in KNOB_SELS:
+            stage["tag"] = f"closest {knob(sel)}"
+            t, ids = bt.traverse(scene.bvh, tris, o, d, big, pk, pi, **sel)
+            diffs[stage["tag"]] = closest_diff(t, ids, t0, id0)
+            stage["tag"] = f"shadow {knob(sel)}"
+            _, occ = bt.traverse(scene.bvh, tris, so, sd, smd, spk, spi,
+                                 any_hit=True, **sel)
+            diffs[stage["tag"]] = shadow_diff(occ, occ0)
+        stage["tag"] = f"closest {knob(TILE_KNOBS)}"
+        t, ids = bt.traverse_tilemt(scene.bvh, tris, o, d, big, pk, pi,
+                                    **TILE_KNOBS)
+        diffs[stage["tag"]] = closest_diff(t, ids, tm0, idm0)
+        for g_n in RES_GROUPS:
+            stage["tag"] = f"shadow res_group={g_n}"
+            _, occ = bt.traverse_resident(scene.bvh, tris, so, sd, smd, spk,
+                                          spi, res_group=g_n)
+            diffs[stage["tag"]] = shadow_diff(occ, occ0)
+        stage["tag"] = None
+    finally:
+        for kind, fn in wrapped.items():
+            setattr(K, f"traverse_{kind}", fn)
+    torch.cuda.synchronize()
+    knob_launches = dict(K.LAUNCHES)
+    say(14, f"window knobs on phase 7's {o.shape[0]} primaries and "
+            f"{int((occ0 >= 0).sum())} of {so.shape[0]} occluded shadow "
+            f"rays, against the default windows (lanes that differ; of "
+            f"them, hits at equal t or one ulp farther, or blockers within "
+            f"one ulp of the segment's end): "
+            + "; ".join(f"{k}: {n} ({e})" for k, (n, e) in diffs.items())
+            + f"; launches {knob_launches}")
+    if any(n != e for n, e in diffs.values()):
+        raise AssertionError("a window setting changed hits or occlusion")
+    if not all(knob_launches[k] > 0 for k in wrapped):
+        raise AssertionError(f"phase 14 missed a kernel: {knob_launches}")
+
+    err, by_g_n = {}, {}
+    for (kind, what), args in sorted(captured.items()):
+        got = wrapped[kind](*args)
+        if kind == "resident":
+            *want, rounds, blocks, pairs = plain[kind](*args, stats=True)
+            walk = (rounds, blocks, pairs)
+            got, want = torch.stack(got), torch.stack(want)
+        elif kind == "banded":
+            *want, pairs = plain[kind](*args, stats=True)
+            walk = pairs
+            got, want = torch.stack(got), torch.stack(want)
+        else:
+            want, pairs = plain[kind](*args, stats=True)
+            walk = pairs
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err[kind] = max(err.get(kind, 0.0), e)
+        say(14, f"{KERNELS[kind]['name']} {what}: rays {args[3].shape[0]} m "
+                f"{args[4]}, tested pairs by exit {pairs.tolist()}; bitwise "
+                f"equal to plain: {torch.equal(got, want)} (max abs err {e})")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{kind} {what}: kernel != plain version")
+        if kind == "resident":
+            g_n = args[6]
+            k_ms = cuda_ms(lambda: wrapped[kind](*args), 10)
+            bound, rounds = kernel_bound(K, kind, args, got, walk)
+            ki = _build.kernel_info("resident", g_n)
+            by_g_n[g_n] = dict(
+                ms=k_ms, bound_ms=bound["ms"], share=bound["ms"] / k_ms,
+                rounds_mean=float(rounds.mean()), regs=ki["regs"],
+                smem=ki["static_smem"] + ki["dynamic_smem"],
+                spilled=ki["local_bytes"], threads=ki["threads"],
+                blocks_per_sm=ki["blocks_per_sm"], card=card)
+            say(14, f"traverse_resident at g_n={g_n} on the shadow batch: "
+                    f"kernel {k_ms:.4f} ms, bound {bound['ms']:.4f} ms, "
+                    f"{float(rounds.mean()):.4f} mean rounds per (program, "
+                    f"partition); {ki['regs']} registers, "
+                    f"{ki['local_bytes']} spilled bytes, "
+                    f"{by_g_n[g_n]['smem']} B of shared memory and "
+                    f"{ki['threads']} threads per block, "
+                    f"{ki['blocks_per_sm']} blocks per SM [{card}]")
+    say(14, f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return bvh_launches, knob_launches, err, by_g_n
 
 
 def mrt_primaries(scene, cam, cfg):

@@ -33,14 +33,16 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = ("banded", "tilemt", "tilebw", "resident")
 # Launcher argument types: the device pointers, the ints, then any host
-# pointer and the stream; each kernel's mrt_<name>_info takes an int[6].
+# pointer and the stream; each kernel's mrt_<name>_info takes an int[6]
+# (resident's also its bands per program).
 _FUNCS = {
     "mrt_traverse_banded": [_P] * 5 + [_I] * 3 + [_P],
     "mrt_traverse_tilemt": [_P] * 6 + [_I] * 3 + [_P],
     "mrt_traverse_tilebw": [_P] * 6 + [_I] * 3
                            + [ctypes.POINTER(ctypes.c_float), _P],
-    "mrt_traverse_resident": [_P] * 5 + [_I] * 3 + [_P],
+    "mrt_traverse_resident": [_P] * 5 + [_I] * 4 + [_P],
     **{f"mrt_{k}_info": [ctypes.POINTER(_I)] for k in KERNELS},
+    "mrt_resident_info": [ctypes.POINTER(_I), _I],
 }
 _lib = None
 BUILD_INFO = {"seconds": None, "built": False, "path": None, "log": ""}
@@ -128,14 +130,16 @@ INFO_KEYS = ("regs", "static_smem", "dynamic_smem", "local_bytes",
              "threads", "blocks_per_sm")
 
 
-def kernel_info(name: str) -> dict:
+def kernel_info(name: str, g_n: int = 8) -> dict:
     """Launch facts of kernel `name` (one of KERNELS) on the current
     device, from cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers per thread,
     static and dynamic shared bytes, spilled bytes per thread, threads per
-    block and resident blocks per SM."""
+    block and resident blocks per SM.  `g_n` is the resident kernel's
+    bands per program."""
     info = (ctypes.c_int * len(INFO_KEYS))()
-    err = getattr(load(), f"mrt_{name}_info")(info)
+    extra = (g_n,) if name == "resident" else ()
+    err = getattr(load(), f"mrt_{name}_info")(info, *extra)
     if err != 0:
         raise RuntimeError(f"{name} kernel info: {error_string(err)}")
     return dict(zip(INFO_KEYS, info))

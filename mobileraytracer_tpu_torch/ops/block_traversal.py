@@ -458,20 +458,50 @@ def _t_init(t_init, o):
                            device=o.device).expand(o.shape[0])
 
 
+def _subtile_windows(grid, rays, unit, sel_st, top_s, top_m):
+    """Window 1 of every ST-ray subtile, selected over `sel_st`-ray
+    bundles (ST by default; a multiple of ST that divides `unit`) and
+    repeated onto their subtiles: a coarser bundle's hull contains each of
+    its subtiles' rays, so its entry bounds stay sound.  Each bundle's
+    window is capped at its worst t_init.  Returns (cand_gid, cand_entry,
+    cut), one row per subtile."""
+    sst = sel_st or ST
+    if sst % ST or unit % sst:
+        raise ValueError(f"sel_st={sst} must be a multiple of {ST} that "
+                         f"divides {unit}")
+    bp = rays.shape[0]
+    cap0 = rays[:, 6].reshape(bp // sst, sst).amax(1)
+    cand_gid, _, cand_entry, cut = _candidates(
+        grid, rays[:, 0:3], rays[:, 3:6], cap=cap0, st=sst, top_s=top_s,
+        top_m=top_m)
+    if sst != ST:
+        rep = sst // ST
+        cand_gid = cand_gid.repeat_interleave(rep, 0)
+        cand_entry = cand_entry.repeat_interleave(rep, 0)
+        cut = cut.repeat_interleave(rep, 0)
+    return cand_gid.contiguous(), cand_entry.contiguous(), cut
+
+
 def traverse(grid: BlockGrid, tris: Triangles, o, d, t_init, prev_kind,
-             prev_id, any_hit: bool = False):
+             prev_id, any_hit: bool = False, with_steps: bool = False,
+             sel_st: int = None, top_s: int = None, top_m: int = None):
     """Closest-hit (or any-hit) over the triangles through the banded
-    kernel.  Returns (t (B,), id (B,) int32, -1 for a miss)."""
+    kernel.  Returns (t (B,), id (B,) int32, -1 for a miss), and with
+    `with_steps` also each ray's lockstep rounds of its banded program in
+    window 1 (B,) f32.
+
+    `sel_st` is the width of the bundles window 1 is selected over (ST by
+    default; a multiple of ST dividing GROUP * ST), and `top_s`/`top_m`
+    override the grid's window depths.  The refill keeps the grid's own
+    windows, so any setting returns the same exact hits."""
     b = o.shape[0]
     t0 = _t_init(t_init, o)
     rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, GROUP * ST)
-    op, dp = rays[:, 0:3], rays[:, 3:6]
-    # Window 1 is capped at each subtile's worst t_init.
-    cap0 = rays[:, 6].reshape(bp // ST, ST).amax(1)
-    cand_gid, _, cand_entry, cut = _candidates(grid, op, dp, cap=cap0)
+    cand_gid, cand_entry, cut = _subtile_windows(grid, rays, GROUP * ST,
+                                                 sel_st, top_s, top_m)
     m = cand_gid.shape[1]
-    t, sid, _ = _banded_balanced(grid, cand_gid, cand_entry, rays, m,
-                                 any_hit)
+    t, sid, steps = _banded_balanced(grid, cand_gid, cand_entry, rays, m,
+                                     any_hit)
 
     # A ray whose best t is within its window's cutoff is resolved.
     lane = torch.arange(bp, device=o.device)
@@ -483,14 +513,19 @@ def traverse(grid: BlockGrid, tris: Triangles, o, d, t_init, prev_kind,
 
     t, sid = t[:b], sid[:b]
     hit = t < t0
-    return (torch.where(hit, t, _BIG),
-            torch.where(hit, sid.to(torch.int32), -1).to(torch.int32))
+    out = (torch.where(hit, t, _BIG),
+           torch.where(hit, sid.to(torch.int32), -1).to(torch.int32))
+    if with_steps:
+        return out + (steps[:b],)
+    return out
 
 
 def traverse_tilemt(grid: BlockGrid, tris: Triangles, o, d, t_init,
-                    prev_kind, prev_id, any_hit: bool = False):
+                    prev_kind, prev_id, any_hit: bool = False,
+                    top_s: int = None, top_m: int = None):
     """Closest-hit (or any-hit) through the tile-MT kernel (one candidate
-    window per 128-ray tile) plus the exact banded refill.  Same contract
+    window per 128-ray tile, TILE_TOP_S/TILE_TOP_M deep unless `top_s`/
+    `top_m` say otherwise) plus the exact banded refill.  Same contract
     as `traverse`."""
     b = o.shape[0]
     t0 = _t_init(t_init, o)
@@ -499,7 +534,8 @@ def traverse_tilemt(grid: BlockGrid, tris: Triangles, o, d, t_init,
     ntile = bp // TILE
     cap0 = rays[:, 6].reshape(ntile, TILE).amax(1)
     cg, _, ce, cut = _candidates(grid, op, dp, cap=cap0, st=TILE,
-                                 top_s=TILE_TOP_S, top_m=TILE_TOP_M)
+                                 top_s=top_s or TILE_TOP_S,
+                                 top_m=top_m or TILE_TOP_M)
     m = cg.shape[1]
     out = kernels.traverse_tilemt(grid.tb, cg, ce, rays, m, any_hit)
     t_cur, sid = out[:, 0], out[:, 1]
@@ -617,29 +653,37 @@ def _resident_lists(grid: BlockGrid, cand_gid, cand_entry):
 
 
 def traverse_resident(grid: BlockGrid, tris: Triangles, o, d, t_init,
-                      prev_kind, prev_id, any_hit: bool = True):
+                      prev_kind, prev_id, any_hit: bool = True,
+                      sel_st: int = None, top_s: int = None,
+                      top_m: int = None, res_group: int = GROUP):
     """Any-hit through the resident-table kernel over the banded windows
     (`_resident_lists`), plus the exact banded refill; same contract as
     `traverse(any_hit=True)`.  Per-partition results combine to the
-    smallest t, with the lowest slot at that t.  Closest-hit queries go to
-    `traverse`.  The default any_hit=True is the JAX package's, so a query
-    through `intersect_scene_blocks(mode="resident")` gets any-hit answers,
-    as it does there (ROADMAP.md Queue 3)."""
+    smallest t, with the lowest slot at that t.  Rays go `res_group`
+    subtiles to a kernel program (kernels.traverse_resident's g_n);
+    `sel_st`, `top_s` and `top_m` set window 1 as in `traverse`.
+    Closest-hit queries go to `traverse` with the same windows.  The
+    default any_hit=True is the JAX package's, so a query through
+    `intersect_scene_blocks(mode="resident")` gets any-hit answers, as it
+    does there (ROADMAP.md Queue 3)."""
     if not any_hit:
         return traverse(grid, tris, o, d, t_init, prev_kind, prev_id,
-                        any_hit=False)
+                        any_hit=False, sel_st=sel_st, top_s=top_s,
+                        top_m=top_m)
+    kernels.check_bands(res_group)
     b = o.shape[0]
     t0 = _t_init(t_init, o)
-    rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, GROUP * ST)
-    op, dp = rays[:, 0:3], rays[:, 3:6]
-    cap0 = rays[:, 6].reshape(bp // ST, ST).amax(1)
-    cand_gid, _, cand_entry, cut = _candidates(grid, op, dp, cap=cap0)
+    rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, res_group * ST)
+    # The packed batch, not the program, must hold whole bundles (the
+    # JAX package's reshape).
+    cand_gid, cand_entry, cut = _subtile_windows(grid, rays, bp, sel_st,
+                                                 top_s, top_m)
     m = cand_gid.shape[1]
 
     tb_pad, starts, glist, n_parts = _resident_lists(grid, cand_gid,
                                                      cand_entry)
     tp, sp = kernels.traverse_resident(tb_pad, starts, glist, rays, m,
-                                       n_parts)
+                                       n_parts, res_group)
     t = tp.amin(0)
     sid = torch.where(tp <= t[None, :], sp, _BIG).amin(0)
     sid = torch.where(t < _BIG * 0.5, sid, -1.0)
@@ -695,10 +739,23 @@ def intersect_scene_blocks(scene: Scene, o, d, prev_kind, prev_id,
                         t_li, id_li, tri_attr=grid.tri_attr)
 
 
+# Window knobs of the shadow queries of coherent batches (engine.make_tracer
+# passes them for the reversed shared-light NEE bundles).  The JAX
+# package's A/B on conference's reversed shared-light bundles (on its TPU)
+# found its default windows fastest: coarser selection bundles (sel_st
+# 32/64) or fewer supers (top_s 16) starve the super cutoff and blow up the
+# per-ray refill, and tile-granular shadow windows over-list badly (the
+# 128-ray hull's axis-aligned cone is far fatter than the true cone).  So
+# the dict is empty, as there, and kept as the tuning hook; every setting
+# stays exact (tests/test_torch_traversal_knobs.py).
+SHADOW_SEL = {}
+
+
 def occluded_blocks(scene: Scene, o, d, max_dist, prev_kind, prev_id,
-                    mode: str = None):
+                    mode: str = None, **sel):
     """Shadow query over the whole scene (the JAX package's
-    `occluded_pallas`)."""
+    `occluded_pallas`); `sel` goes to the traversal (the window knobs of
+    `traverse`: sel_st, top_s, top_m; and res_group for "resident")."""
     grid = scene.bvh
     if not isinstance(grid, BlockGrid):
         raise ValueError("call ops.block_traversal.build first")
@@ -708,5 +765,5 @@ def occluded_blocks(scene: Scene, o, d, max_dist, prev_kind, prev_id,
                                  exclude_prev=True)
     trav = _TRAVERSALS[mode or DEFAULT_MODE]
     _, id_tr = trav(grid, scene.triangles, o, d, md, prev_kind, prev_id,
-                    any_hit=True)
+                    any_hit=True, **sel)
     return (id_tr >= 0) | (t_pl < md) | (t_sp < md)

@@ -44,6 +44,10 @@ class BVHNodes(TensorData):
     node_skip: np.ndarray    # (K,) i32 escape index
     node_count: np.ndarray   # (K,) i32, 0 for internal nodes
 
+    @property
+    def num_nodes(self) -> int:
+        return self.node_min.shape[0]
+
 
 _SAH_BUCKETS = 10  # reference bucket count (BVH.hpp getSplitIndexSah)
 

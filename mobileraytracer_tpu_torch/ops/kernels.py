@@ -422,66 +422,83 @@ def _tile_chunk(tw, cand_gid, cand_entry, rays, m, any_hit, tmg, exits):
     return out
 
 
-_RES_CHUNK = 2048    # (partition, program) pairs per round of resident_plain
+_RES_CHUNK = 2048    # (partition, 8-band program) pairs per pass of
+                     # resident_plain
+
+
+MAX_BANDS = 32    # bands per resident program: 32 threads each, 1,024 a block
+
+
+def check_bands(g_n) -> int:
+    """g_n, the resident kernel's bands per program, if it is an int in
+    [1, MAX_BANDS]; ValueError otherwise."""
+    if not isinstance(g_n, int) or not 1 <= g_n <= MAX_BANDS:
+        raise ValueError(f"the resident kernel takes 1 to {MAX_BANDS} bands "
+                         f"a program (a band is one 32-thread warp and a "
+                         f"CUDA block holds at most 1,024 threads), got "
+                         f"{g_n!r}")
+    return g_n
 
 
 def resident_plain(tb, starts, glist, rays, m: int, n_parts: int,
-                   stats: bool = False):
+                   g_n: int = GROUP, stats: bool = False):
     """Resident-table any-hit walk.  tb is the block table zero-padded to
     n_parts * NBP blocks; the grid is (partition p, program).  One program =
-    GROUP bands of ST rays; band g's gid-sorted list (a row of glist,
+    g_n bands of ST rays; band g's gid-sorted list (a row of glist,
     (Bp/ST, m)) holds its partition-p blocks at [s0, s1) = starts[g, p],
     starts[g, p + 1] (starts (Bp/ST, n_parts + 1)).  Round r tests, for every
     band, block clip(s0 + r, s0, max(s1 - 1, s0)) of its list, read at
     clip(gid - p NBP, 0, NBP - 1) inside partition p (list positions past
-    the program's GROUP*m entries read its last one).  A band is alive while
+    the program's g_n*m entries read its last one).  A band is alive while
     s0 + r < s1 and one of its rays is unoccluded; the program runs while
-    any band is alive, and dead bands keep testing their clamped block.
+    any of its g_n bands is alive, and dead bands keep testing their
+    clamped block, so t and slot depend on g_n.
     Returns (t, slot), each (n_parts, Bp) f32; with `stats` also the
-    rounds of each (partition, program), (n_parts, Bp/TILE) int64, the
+    rounds of each (partition, program), (n_parts, Bp/(g_n ST)) int64, the
     number of distinct blocks of tb the walk read, and the walk's pair
     counts per exit of the Moller-Trumbore test (MT_STAGE_OPS order)."""
     bp = rays.shape[0]
-    ng = bp // TILE
+    ng = bp // (g_n * ST)
     dev = rays.device
-    st = starts.reshape(ng, GROUP, n_parts + 1).long()
-    gl = glist.reshape(ng, GROUP * m).long()
+    st = starts.reshape(ng, g_n, n_parts + 1).long()
+    gl = glist.reshape(ng, g_n * m).long()
     ox, oy, oz, dx, dy, dz, t_init, prev = _ray_parts(
-        rays.reshape(ng, GROUP, ST, 8))
-    t_best = t_init.expand(n_parts, ng, GROUP, ST, 1).clone()
+        rays.reshape(ng, g_n, ST, 8))
+    t_best = t_init.expand(n_parts, ng, g_n, ST, 1).clone()
     slot_best = torch.full_like(t_best, -1.0)
     parts = torch.arange(n_parts, device=dev)[:, None].expand(n_parts, ng)
     progs = torch.arange(ng, device=dev)[None, :].expand(n_parts, ng)
-    s0 = st[progs, :, parts]                              # (P, ng, G)
+    s0 = st[progs, :, parts]                              # (P, ng, g_n)
     s1 = st[progs, :, parts + 1]
-    band = torch.arange(GROUP, device=dev) * m
+    band = torch.arange(g_n, device=dev) * m
 
     def live(r, p, g, tb_):
         has = s0[p, g] + r < s1[p, g]
-        not_occ = ~(tb_ < t_init[g]).all(-1).all(-1)      # (k, G)
+        not_occ = ~(tb_ < t_init[g]).all(-1).all(-1)      # (k, g_n)
         return (has & not_occ).any(1)
 
     alive = live(0, parts.reshape(-1), progs.reshape(-1),
-                 t_best.reshape(-1, GROUP, ST, 1)).reshape(n_parts, ng)
+                 t_best.reshape(-1, g_n, ST, 1)).reshape(n_parts, ng)
     rounds = torch.zeros((n_parts, ng), dtype=torch.int64, device=dev)
     read = torch.zeros(tb.shape[0], dtype=torch.bool, device=dev)
     exits = torch.zeros(len(MT_STAGE_OPS), dtype=torch.long) if stats \
         else None
+    chunk = max(1, _RES_CHUNK * GROUP // g_n)
     r = 0
     while True:
         pairs = alive.nonzero()
         if pairs.shape[0] == 0:
             break
-        for c0 in range(0, pairs.shape[0], _RES_CHUNK):
-            p, g = pairs[c0:c0 + _RES_CHUNK].unbind(1)
+        for c0 in range(0, pairs.shape[0], chunk):
+            p, g = pairs[c0:c0 + chunk].unbind(1)
             a, b = s0[p, g], s1[p, g]
             idx = torch.minimum(a + r, torch.maximum(b - 1, a))
-            pos = torch.clamp(band + idx, max=GROUP * m - 1)
+            pos = torch.clamp(band + idx, max=g_n * m - 1)
             lid = torch.clamp(gl[g[:, None], pos] - p[:, None] * NBP, 0,
                               NBP - 1)
             row = p[:, None] * NBP + lid
             read[row] = True
-            blk = tb[row]                                 # (k, G, 16, LANES)
+            blk = tb[row]                                 # (k, g_n, 16, LANES)
             tn, sn = _mt_round(blk, ox[g], oy[g], oz[g], dx[g], dy[g],
                                dz[g], prev[g], t_best[p, g],
                                slot_best[p, g], exits)
@@ -691,15 +708,23 @@ def traverse_tile(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
     return out
 
 
-def traverse_resident(tb, starts, glist, rays, m: int, n_parts: int):
-    """Resident-table any-hit kernel (see resident_plain).  tb is padded to
-    n_parts * NBP blocks; starts is (Bp/ST, n_parts + 1) and glist (Bp/ST,
-    m), both int32.  Returns (t, slot), each (n_parts, Bp) f32."""
+def traverse_resident(tb, starts, glist, rays, m: int, n_parts: int,
+                      g_n: int = GROUP):
+    """Resident-table any-hit kernel (see resident_plain), g_n bands of ST
+    rays a program (1 to MAX_BANDS; Bp a multiple of g_n * ST).  tb is
+    padded to n_parts * NBP blocks; starts is (Bp/ST, n_parts + 1) and
+    glist (Bp/ST, m), both int32.  Returns (t, slot), each (n_parts, Bp)
+    f32."""
+    check_bands(g_n)
     _check_tensors(rays.device, (("tb", tb, torch.float32),
                                  ("starts", starts, torch.int32),
                                  ("glist", glist, torch.int32),
                                  ("rays", rays, torch.float32)))
-    bp = _check_rays(rays)
+    bp = rays.shape[0]
+    if rays.dim() != 2 or rays.shape[1] != 8 or bp % (g_n * ST):
+        raise ValueError(f"rays must be (Bp, 8) with Bp a multiple of "
+                         f"{g_n * ST} ({g_n} bands of {ST}), got "
+                         f"{tuple(rays.shape)}")
     if n_parts < 1 or tuple(tb.shape) != (n_parts * NBP, _ROWS, LANES):
         raise ValueError(f"tb must be ({n_parts} * {NBP}, {_ROWS}, {LANES}),"
                          f" got {tuple(tb.shape)}")
@@ -709,12 +734,12 @@ def traverse_resident(tb, starts, glist, rays, m: int, n_parts: int):
                          f" / ({bp // ST}, {m}), got {tuple(starts.shape)} /"
                          f" {tuple(glist.shape)}")
     if rays.device.type == "cpu":
-        return resident_plain(tb, starts, glist, rays, m, n_parts)
+        return resident_plain(tb, starts, glist, rays, m, n_parts, g_n)
     out = torch.empty((2, n_parts, bp), dtype=torch.float32,
                       device=rays.device)
     if bp:
         _launch("mrt_traverse_resident", "resident", rays.device,
                 _ptr(tb), _ptr(starts), _ptr(glist), _ptr(rays), _ptr(out),
-                ctypes.c_int(bp // TILE), ctypes.c_int(n_parts),
-                ctypes.c_int(m))
+                ctypes.c_int(bp // (g_n * ST)), ctypes.c_int(n_parts),
+                ctypes.c_int(m), ctypes.c_int(g_n))
     return out[0], out[1]

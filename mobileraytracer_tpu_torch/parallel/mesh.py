@@ -74,28 +74,42 @@ def _device_mesh(device_type: str, ranks, names):
     return DeviceMesh(device_type, ranks, mesh_dim_names=names)
 
 
-def make_mesh(n_devices: Optional[int] = None, device_type: str = "cuda"):
-    """1-D mesh named ("rays",) over the first `n_devices` ranks, or all of
-    them.  Every rank of the job calls it; a rank outside the mesh gets a
-    mesh whose `get_coordinate()` is None and takes no part in its
-    collectives."""
-    n = dist.get_world_size() if n_devices is None else n_devices
-    return _device_mesh(device_type, list(range(n)), (RAY_AXIS,))
+def _ranks(devices):
+    """The ordered global ranks a mesh spans: `devices` (ranks, JAX's
+    device list), or every rank of the job."""
+    if devices is None:
+        return list(range(dist.get_world_size()))
+    return [int(r) for r in devices]
 
 
-def make_mesh_2d(n_hosts: Optional[int] = None, device_type: str = "cuda"):
-    """2-D (hosts, rays) mesh: one row per host, its ranks along "rays".
-    `n_hosts` defaults to WORLD_SIZE // LOCAL_WORLD_SIZE, which torchrun
-    sets; without torchrun pass it."""
-    world = dist.get_world_size()
+def make_mesh(n_devices: Optional[int] = None, devices=None,
+              device_type: str = "cuda"):
+    """1-D mesh named ("rays",) over `devices`, the ordered list of global
+    ranks it spans (every rank by default), cut to its first `n_devices`.
+    Shard i goes to the i-th rank of the list.  Every rank of the job
+    calls it; a rank outside the mesh gets a mesh whose `get_coordinate()`
+    is None and takes no part in its collectives."""
+    ranks = _ranks(devices)
+    if n_devices is not None:
+        ranks = ranks[:n_devices]
+    return _device_mesh(device_type, ranks, (RAY_AXIS,))
+
+
+def make_mesh_2d(n_hosts: Optional[int] = None, devices=None,
+                 device_type: str = "cuda"):
+    """2-D (hosts, rays) mesh over `devices` (ordered global ranks, every
+    rank by default): one row per host, its ranks along "rays".  `n_hosts`
+    defaults to WORLD_SIZE // LOCAL_WORLD_SIZE, which torchrun sets;
+    without torchrun pass it."""
+    ranks = _ranks(devices)
     if n_hosts is None:
         if "LOCAL_WORLD_SIZE" not in os.environ:
             raise ValueError("make_mesh_2d: pass n_hosts (LOCAL_WORLD_SIZE "
                              "is unset, as torchrun did not start this job)")
-        n_hosts = world // int(os.environ["LOCAL_WORLD_SIZE"])
-    per_host = world // n_hosts
-    ranks = np.arange(n_hosts * per_host).reshape(n_hosts, per_host)
-    return _device_mesh(device_type, ranks.tolist(), (HOST_AXIS, RAY_AXIS))
+        n_hosts = dist.get_world_size() // int(os.environ["LOCAL_WORLD_SIZE"])
+    per_host = len(ranks) // n_hosts
+    grid = np.asarray(ranks[:n_hosts * per_host]).reshape(n_hosts, per_host)
+    return _device_mesh(device_type, grid.tolist(), (HOST_AXIS, RAY_AXIS))
 
 
 def _shard_index(mesh) -> int:
@@ -128,12 +142,18 @@ def all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's x concatenated along dim 0 in shard order."""
+    """Every rank's x concatenated along dim 0 in shard order: along each
+    axis in the order of the mesh's coordinates, which need not be the
+    order of the axis group's ranks (make_mesh(devices=))."""
     x = x.contiguous()
-    for g in _axis_groups(mesh):
+    for d in reversed(range(mesh.ndim)):
+        g = mesh.get_group(d)
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
         dist.all_gather(parts, x, group=g)
-        x = torch.cat(parts)
+        line = list(mesh.get_coordinate())
+        line[d] = slice(None)
+        x = torch.cat([parts[dist.get_group_rank(g, int(r))]
+                       for r in mesh.mesh[tuple(line)].tolist()])
     return x
 
 

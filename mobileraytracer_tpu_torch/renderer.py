@@ -365,7 +365,7 @@ class Renderer:
         """Resumes a render state saved by either package; its config must
         equal this renderer's."""
         from .utils.checkpoint import load_render_state
-        accum, sample, rays, config = load_render_state(path)
+        accum, sample, rays, config, _ = load_render_state(path)
         if config != self.config:
             raise ValueError("checkpoint config does not match renderer "
                              f"config: {config} vs {self.config}")

@@ -146,7 +146,8 @@ def _light_samples(scene: Scene, k_pick, k_point):
 def direct_lighting(scene: Scene, hit: Hit, keys: torch.Tensor,
                     samples_light: int, shadows: bool, occluded_fn=None,
                     mask=None, share_mask=None, share_width: int = 16,
-                    reverse: bool = False, share_all: bool = False):
+                    coherent: bool = False, reverse: bool = False,
+                    share_all: bool = False):
     """Next-event estimation for diffuse hits (Whitted.cpp:37-65).  Per
     sample: a uniform light pick, its position or a uniform point on it,
     radiance * cos(N, L) when above the horizon and (with `shadows`)
@@ -158,6 +159,8 @@ def direct_lighting(scene: Scene, hit: Hit, keys: torch.Tensor,
     on the group's first keys only), otherwise for lanes in `share_mask`
     (all lanes when it is None).  `reverse` traces each shadow segment
     from the light point toward the surface, ending EPSILON short of it.
+    `coherent` goes to `occluded_fn`: it marks the reversed shared-light
+    bundles (engine.make_tracer gives them block_traversal.SHADOW_SEL).
     """
     b = hit.t.shape[0]
     dev = hit.t.device
@@ -165,7 +168,7 @@ def direct_lighting(scene: Scene, hit: Hit, keys: torch.Tensor,
     shadow_rays = torch.zeros((b,), dtype=torch.int32, device=dev)
     has_lights = scene.lights.num > 0
     if occluded_fn is None:
-        occluded_fn = intersect.occluded_naive
+        occluded_fn = lambda *a, **k: intersect.occluded_naive(*a)
     origin = hit.point
 
     share_all = share_all and b % share_width == 0
@@ -210,7 +213,7 @@ def direct_lighting(scene: Scene, hit: Hit, keys: torch.Tensor,
                 org_s, dir_s, md_s = origin, ldir, dist
             org_t, dir_t = park_dead_lanes(org_s, dir_s, live)
             blocked = occluded_fn(scene, org_t, dir_t, md_s, hit.prim_kind,
-                                  hit.prim_id)
+                                  hit.prim_id, coherent=coherent)
             visible = visible & ~blocked
         contrib = radiance * cos_nl[:, None]
         total = total + torch.where((visible & has_lights)[:, None], contrib,

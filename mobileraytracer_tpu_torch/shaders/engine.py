@@ -38,7 +38,7 @@ import torch
 
 from .. import constants as C
 from .. import sampling
-from ..ops import block_traversal, bvh, grid, intersect
+from ..ops import block_bvh, block_traversal, bvh, grid, intersect
 from ..types import RenderConfig, Scene
 from . import common
 
@@ -48,7 +48,8 @@ WALK = {"steps": 0}
 
 class Tracer(NamedTuple):
     closest: Callable   # (scene, o, d, prev_kind, prev_id, coherent) -> Hit
-    occluded: Callable  # (scene, o, d, max_dist, prev_kind, prev_id) -> bool
+    occluded: Callable  # (scene, o, d, max_dist, prev_kind, prev_id,
+    #                      coherent) -> bool
 
 
 def _no_reverse_mode(what: str, where: str):
@@ -56,18 +57,21 @@ def _no_reverse_mode(what: str, where: str):
         f"differentiable rendering does not pass through {what}: the JAX "
         f"package runs it as a lax.while_loop ({where}), which reverse mode "
         "rejects; render gradients with ACC_NAIVE, or ACC_BVH on a block "
-        "grid (ops/block_traversal.build)")
+        "grid (ops/block_traversal.build or ops/block_bvh.build)")
 
 
 def make_tracer(config: RenderConfig, differentiable: bool = False) -> Tracer:
     """Accelerator dispatch.  ACC_REGULAR_GRID: the grid DDA when the
-    scene holds a grid, else the naive scan.  ACC_BVH on a block grid:
-    coherent closest-hit batches (the primary pass in patch-major order)
-    take the tile-MT traversal, the others the banded one, and every
-    shadow query the banded one; on an escape-index tree (ops/bvh.build):
-    the escape-index walk.
+    scene holds a grid, else the naive scan.  ACC_BVH on a block grid
+    (ops/block_traversal.build): coherent closest-hit batches (the primary
+    pass in patch-major order) take the tile-MT traversal, the others the
+    banded one, and every shadow query the banded one, with the windows of
+    block_traversal.SHADOW_SEL on coherent ones (the reversed shared-light
+    cones); on a two-level block BVH (ops/block_bvh.build): its fixed-work
+    traversal; on an escape-index tree (ops/bvh.build): the escape-index
+    walk.
 
-    With `differentiable` the block traversal runs off the tape and its
+    With `differentiable` the block traversals run off the tape and their
     hits are re-derived from the live triangle table, and shadow queries
     (boolean) see a detached scene and rays.  The grid DDA and the
     escape-index walk raise, as reverse mode rejects them in the JAX
@@ -75,7 +79,7 @@ def make_tracer(config: RenderConfig, differentiable: bool = False) -> Tracer:
     if config.accelerator in (C.ACC_NONE, C.ACC_NAIVE):
         return Tracer(
             closest=lambda *a, **k: intersect.intersect_scene_naive(*a),
-            occluded=intersect.occluded_naive)
+            occluded=lambda *a, **k: intersect.occluded_naive(*a))
     if config.accelerator == C.ACC_REGULAR_GRID:
         def closest_g(scene, o, d, pk, pi, coherent=False):
             if isinstance(scene.bvh, grid.RegularGrid):
@@ -84,7 +88,7 @@ def make_tracer(config: RenderConfig, differentiable: bool = False) -> Tracer:
                 return grid.intersect_scene_grid(scene, o, d, pk, pi)
             return intersect.intersect_scene_naive(scene, o, d, pk, pi)
 
-        def occluded_g(scene, o, d, md, pk, pi):
+        def occluded_g(scene, o, d, md, pk, pi, coherent=False):
             if isinstance(scene.bvh, grid.RegularGrid):
                 return grid.occluded_grid(scene, o, d, md, pk, pi)
             return intersect.occluded_naive(scene, o, d, md, pk, pi)
@@ -96,21 +100,30 @@ def make_tracer(config: RenderConfig, differentiable: bool = False) -> Tracer:
                     scene, o, d, pk, pi,
                     mode="tilemt" if coherent else "banded",
                     differentiable=differentiable)
+            if isinstance(scene.bvh, block_bvh.BlockGrid):
+                return block_bvh.intersect_scene_blocks(
+                    scene, o, d, pk, pi, differentiable=differentiable)
             if differentiable:
                 _no_reverse_mode("the escape-index BVH walk", "bvh.py:277")
             return bvh.intersect_scene_bvh(scene, o, d, pk, pi)
 
-        def occluded(scene, o, d, md, pk, pi):
+        def occluded_any(scene, o, d, md, pk, pi, coherent):
             if isinstance(scene.bvh, block_traversal.BlockGrid):
-                if differentiable:
-                    with torch.no_grad():
-                        return block_traversal.occluded_blocks(
-                            scene.detach(), o.detach(), d.detach(),
-                            torch.as_tensor(md).detach(), pk, pi,
-                            mode="banded")
-                return block_traversal.occluded_blocks(scene, o, d, md, pk,
-                                                       pi, mode="banded")
+                sel = block_traversal.SHADOW_SEL if coherent else {}
+                return block_traversal.occluded_blocks(
+                    scene, o, d, md, pk, pi, mode="banded", **sel)
+            if isinstance(scene.bvh, block_bvh.BlockGrid):
+                return block_bvh.occluded_blocks(scene, o, d, md, pk, pi)
             return bvh.occluded_bvh(scene, o, d, md, pk, pi)
+
+        def occluded(scene, o, d, md, pk, pi, coherent=False):
+            if differentiable:
+                with torch.no_grad():
+                    return occluded_any(scene.detach(), o.detach(),
+                                        d.detach(),
+                                        torch.as_tensor(md).detach(), pk,
+                                        pi, coherent)
+            return occluded_any(scene, o, d, md, pk, pi, coherent)
         return Tracer(closest=closest, occluded=occluded)
     raise ValueError(f"unknown accelerator {config.accelerator}")
 
@@ -323,7 +336,7 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
             occluded_fn=tracer.occluded, mask=diffuse,
             share_mask=None if shared_step else (it == 0),
             share_width=config.nee_share, share_all=shared_step,
-            reverse=rev)
+            reverse=rev, coherent=rev)
         ld = kd * ld_sum / torch.full_like(ld_sum,
                                            float(config.samples_light))
         has_l = scene.lights.num > 0

@@ -2,7 +2,8 @@
 (port of `mobileraytracer_tpu/utils/checkpoint.py`).
 
 A render's state is the float32 film in lane order, the sample index, the
-casted-ray total and the RenderConfig as JSON.  A recovery's state is
+casted-ray total, the RenderConfig as JSON and any caller's extra arrays
+(`extra_<name>` entries).  A recovery's state is
 (params, torch.optim.Adam) stored as the JAX package stores its (params,
 optax state) pytree: `leaf_i` in the order of JAX's leaves (params by
 sorted name, then Adam's count, mu by name and nu by name), then
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +25,10 @@ from ..types import RenderConfig
 
 
 def save_render_state(path: str, accum: torch.Tensor, sample: int,
-                      total_rays: int, config: RenderConfig) -> None:
+                      total_rays: int, config: RenderConfig,
+                      extra: Optional[dict] = None) -> None:
+    """Writes the render state; each entry of `extra` (arrays or tensors)
+    goes in as `extra_<name>`."""
     payload = {
         "accum": accum.detach().cpu().numpy(),
         "sample": np.asarray(sample, np.int64),
@@ -32,16 +36,22 @@ def save_render_state(path: str, accum: torch.Tensor, sample: int,
         "config_json": np.frombuffer(
             json.dumps(dataclasses.asdict(config)).encode(), dtype=np.uint8),
     }
+    for k, v in (extra or {}).items():
+        payload[f"extra_{k}"] = (v.detach().cpu().numpy()
+                                 if torch.is_tensor(v) else np.asarray(v))
     np.savez(path, **payload)
 
 
 def load_render_state(path: str) -> Tuple[np.ndarray, int, int,
-                                          RenderConfig]:
-    """(accum as numpy, sample, total rays, config)."""
+                                          RenderConfig, dict]:
+    """(accum as numpy, sample, total rays, config, extra): extra maps each
+    `extra_<name>` entry's name to its numpy array."""
     with np.load(path) as data:
         config = RenderConfig(**json.loads(bytes(data["config_json"])))
+        extra = {k[len("extra_"):]: data[k] for k in data.files
+                 if k.startswith("extra_")}
         return (data["accum"], int(data["sample"]), int(data["total_rays"]),
-                config)
+                config, extra)
 
 
 def save_opt_state(path: str, state, step: int, losses) -> None:

@@ -124,6 +124,32 @@ def test_resident_kernel_equals_plain(cuda_scene):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g_n", [1, 2, 4, 8, 16, 32])
+def test_resident_kernel_equals_plain_at_g_n(cuda_scene, g_n):
+    """The resident kernel with g_n bands a program (res_group), bitwise
+    its plain version; traverse_resident's occlusion equals traverse's."""
+    scene, o, d = cuda_scene
+    _, cg, ce, rays, m, _ = _inputs(scene, o, d, K.ST, True)
+    tb_pad, starts, glist, n_parts = bt._resident_lists(scene.bvh, cg, ce)
+    args = (tb_pad, starts, glist, rays, m, n_parts, g_n)
+    before = K.LAUNCHES["resident"]
+    got = torch.stack(K.traverse_resident(*args))
+    assert K.LAUNCHES["resident"] == before + 1
+    want = torch.stack(K.resident_plain(*args))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    b = o.shape[0]
+    pk = torch.zeros(b, dtype=torch.int32, device=o.device)
+    pi = torch.full((b,), -1, dtype=torch.int32, device=o.device)
+    md = torch.full((b,), 900.0, device=o.device)
+    occ = bt.traverse_resident(scene.bvh, scene.triangles, o, d, md, pk, pi,
+                               res_group=g_n)[1] >= 0
+    occ_b = bt.traverse(scene.bvh, scene.triangles, o, d, md, pk, pi,
+                        any_hit=True)[1] >= 0
+    assert torch.equal(occ, occ_b)
+
+
+@pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_version(cuda_scene):
     scene, o, d = cuda_scene
     K.reset_launches()

@@ -189,6 +189,48 @@ def test_checkpoints_cross_packages(tmp_path):
     assert j2.total_rays == j_full.total_rays
 
 
+def test_checkpoint_extras_cross_packages(tmp_path):
+    """save_render_state(extra=) and load_render_state's 5-tuple: a JAX
+    checkpoint's extras survive the port's loader, and the port's extras
+    (numpy arrays and tensors) survive JAX's, exactly and with their
+    dtypes."""
+    from mobileraytracer_tpu.utils import checkpoint as jck
+    from mobileraytracer_tpu_torch.utils import checkpoint as tck
+    rng = np.random.default_rng(0)
+    accum = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    extra = {"kd": rng.uniform(0, 1, (4, 3)).astype(np.float32),
+             "step": np.asarray(7, np.int64),
+             "mask": rng.uniform(0, 1, (5,)) > 0.5}
+    cfg = _kw(spp=4, size=8)
+    jpath, tpath = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jck.save_render_state(jpath, accum, 3, 123, JConfig(**cfg), extra=extra)
+    acc, sample, rays, config, got = tck.load_render_state(jpath)
+    np.testing.assert_array_equal(acc, accum)
+    assert (sample, rays, config) == (3, 123, RenderConfig(**cfg))
+    assert sorted(got) == sorted(extra)
+    for k, v in extra.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v)
+
+    tck.save_render_state(tpath, torch.from_numpy(accum), 3, 123,
+                          RenderConfig(**cfg),
+                          extra=dict(extra, kd=torch.from_numpy(extra["kd"])))
+    acc, sample, rays, config, got = jck.load_render_state(tpath)
+    np.testing.assert_array_equal(np.asarray(acc), accum)
+    assert (sample, rays, config) == (3, 123, JConfig(**cfg))
+    assert sorted(got) == sorted(extra)
+    for k, v in extra.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v)
+    # Without extras both files hold the same keys, and the dict is empty.
+    jck.save_render_state(jpath, accum, 3, 123, JConfig(**cfg))
+    tck.save_render_state(tpath, torch.from_numpy(accum), 3, 123,
+                          RenderConfig(**cfg))
+    with np.load(jpath) as a, np.load(tpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+    assert tck.load_render_state(jpath)[4] == {}
+
+
 def _replace(scene, part, **kw):
     return dataclasses.replace(
         scene, **{part: dataclasses.replace(getattr(scene, part), **kw)})

@@ -152,6 +152,18 @@ def test_subset_mesh(jobs):
     assert all(bool(r["outside"]) for r in got[2:])
 
 
+def test_mesh_over_listed_ranks(jobs):
+    """make_mesh(devices=[1, 0]) in the 2-rank job: rank 1 holds shard 0,
+    and both ranks return the one-device frame bit for bit."""
+    s, c = W.frame_scene()
+    one = renderer.render_frame(s, c, RenderConfig(**W.FRAME_KW),
+                                sampling.prng_key(0))
+    got = ranks(jobs, 2, "devices")
+    assert [int(r["shard"]) for r in got] == [1, 0]
+    for r in got:
+        assert_same_frame(r, one)
+
+
 @pytest.mark.parametrize("n", WORLDS)
 def test_2d_mesh_equals_1d(jobs, n):
     """make_mesh_2d(n_hosts=2): (2, 1) on 2 ranks, 2 x 2 on 4; the frame

@@ -29,6 +29,7 @@ def test_every_module_imports_without_jax():
     assert {"mobileraytracer_tpu_torch.bench",
             "mobileraytracer_tpu_torch.bench_grad",
             "mobileraytracer_tpu_torch.diff.geom",
+            "mobileraytracer_tpu_torch.ops.block_bvh",
             "mobileraytracer_tpu_torch.parallel.mesh",
             "mobileraytracer_tpu_torch.parallel.recover",
             "mobileraytracer_tpu_torch.sweep",

@@ -125,6 +125,16 @@ def case_mesh2d(m, device):
     return _frame(m["2d"], device)
 
 
+def case_devices(m, device):
+    """The 1-D frame on make_mesh(devices=) over the ranks in reverse
+    order (2-rank job only): rank 1 takes shard 0."""
+    if torch.distributed.get_world_size() != 2:
+        return {}
+    mesh = m["reversed"]
+    return dict(_frame(mesh, device),
+                shard=torch.tensor(pmesh._shard_index(mesh)))
+
+
 def case_train(m, device):
     s, c = train_scene(device)
     loss, grads = pmesh.train_step_sharded(
@@ -171,8 +181,9 @@ def case_vgrad_chunk(m, device):
 
 
 CASES = {"frame": case_frame, "parity": case_parity, "subset": case_subset,
-         "mesh2d": case_mesh2d, "train": case_train, "recover": case_recover,
-         "vgrad_tri": case_vgrad_tri, "vgrad_chunk": case_vgrad_chunk}
+         "mesh2d": case_mesh2d, "devices": case_devices, "train": case_train,
+         "recover": case_recover, "vgrad_tri": case_vgrad_tri,
+         "vgrad_chunk": case_vgrad_chunk}
 
 
 def main(world, rank, store, out, device="cpu", cases=None):
@@ -183,7 +194,9 @@ def main(world, rank, store, out, device="cpu", cases=None):
     dev = pmesh.rank_device(device)
     meshes = {"rays": pmesh.make_mesh(device_type=device),
               "subset": pmesh.make_mesh(n_devices=2, device_type=device),
-              "2d": pmesh.make_mesh_2d(n_hosts=2, device_type=device)}
+              "2d": pmesh.make_mesh_2d(n_hosts=2, device_type=device),
+              "reversed": pmesh.make_mesh(
+                  devices=list(reversed(range(world))), device_type=device)}
     results = {}
     for name in (cases or list(CASES)):
         args = (meshes, dev) + ((out,) if name == "recover" else ())
