@@ -17,7 +17,9 @@ It renders on the CUDA card, and raises when there is none, unless
 `--cpu` asks for the CPU.  THREADS is accepted and ignored: the card owns
 the parallelism.  The metrics line (one JSON object, with the
 reference's rays_per_second) goes to stdout unless PRINT is false
-(--quiet), and is appended to --metrics-jsonl.
+(--quiet), and is appended to --metrics-jsonl.  `--spans PATH` turns the
+tracer on (utils/metrics.py), writes its spans to PATH as Chrome-trace
+JSON, and adds its summary to the metrics line under "trace".
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import numpy as np
 
 from . import constants as C
 from .types import RenderConfig
+from .utils import metrics as tracer
 from .utils.metrics import PhaseTimer, RunMetrics
 
 logger = logging.getLogger("mobileraytracer_tpu_torch")
@@ -74,6 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="render on the CPU (default: the CUDA card)")
     p.add_argument("--metrics-jsonl", default="",
                    help="append run metrics to this JSONL file")
+    p.add_argument("--spans", default="",
+                   help="trace the run: write its spans to this file as "
+                        "Chrome-trace JSON ('' = no tracing)")
     return p
 
 
@@ -120,6 +126,9 @@ def main(argv=None) -> int:
 
     timer = PhaseTimer()
     metrics = RunMetrics(args.metrics_jsonl or None)
+    if args.spans:
+        tracer.reset()
+        tracer.enable()
 
     ratio = args.width / max(args.height, 1)
     max_point = None
@@ -166,6 +175,10 @@ def main(argv=None) -> int:
                    accelerator=args.acc, repeats=args.rep, **info,
                    **{f"secs_{k}": v for k, v in timer.seconds.items()})
     metrics.rays_per_second(total_rays, render_secs)
+    if args.spans:
+        tracer.disable()
+        tracer.export(args.spans)
+        metrics.update(trace=tracer.summary())
     line = metrics.emit()
     if not args.quiet:
         print(line)

@@ -31,7 +31,6 @@ is on the tape.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -46,26 +45,15 @@ from ..shaders import common
 from ..shaders.engine import make_tracer, trace_image_sample
 from ..types import (CAMERA_PERSPECTIVE, Camera, RenderConfig, Scene,
                      Triangles)
+from ..utils.metrics import span
 
 
-# When a dict, vertex_grad records CUDA events around its parts into it,
-# {part: [(start, end), ...]}, for a caller to read after a sync
-# (chip_smoke.py phase 10): "interior", "silhouette" and "shadow" (each
-# term with its edge draw), and "draws" (the Gumbel-max draws alone).
+# When a dict, the spans of vertex_grad's parts on a CUDA device also
+# record CUDA events into it, {part: [(start, end), ...]}, for a caller to
+# read after a sync (chip_smoke.py phase 10): "interior", "silhouette" and
+# "shadow" (each term with its edge draw), and "draws" (the Gumbel-max
+# draws alone).
 EVENTS = None
-
-
-@contextlib.contextmanager
-def _timed(part: str, device):
-    if EVENTS is None or torch.device(device).type != "cuda":
-        yield
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    yield
-    end.record()
-    EVENTS.setdefault(part, []).append((start, end))
 
 
 def _det(a, b, c):
@@ -253,7 +241,7 @@ def edge_topology(tris: Triangles, quantum: float = 1e-5) -> np.ndarray:
 def _draw_edges(key, w_e: torch.Tensor, budget: int):
     """`budget` edges drawn by length importance (jax.random.categorical
     over log-weights) and each draw's weight 1 / (budget p_e)."""
-    with _timed("draws", w_e.device):
+    with span("gradients.draws", events=EVENTS, device=w_e.device):
         logits = threefry.xla_log(torch.clamp(w_e, min=1e-30))
         sel = threefry.categorical(key, logits, budget)
     p_e = w_e[sel] / torch.clamp(torch.sum(w_e), min=1e-30)
@@ -388,7 +376,7 @@ def _boundary_terms(verts, scene, camera, base_key, ek_arr, *, config,
     gradient, a dict of (N, 3) per vertex slot; with `mesh` the silhouette
     probes are sharded and the shadow term is not."""
     dev = verts["va"].device
-    with _timed("silhouette", dev):
+    with span("gradients.silhouette", events=EVENTS, device=dev):
         g_bnd = _silhouette_term(verts, scene, camera, base_key, ek_arr,
                                  config, edge_samples, edge_eps, edge_budget,
                                  mesh)
@@ -397,7 +385,7 @@ def _boundary_terms(verts, scene, camera, base_key, ek_arr, *, config,
         e0 = torch.cat([verts["va"], verts["vb"], verts["vc"]], 0)
         e1 = torch.cat([verts["vb"], verts["vc"], verts["va"]], 0)
         wl = _norm(e1 - e0) * ek_arr
-        with _timed("shadow", dev):
+        with span("gradients.shadow", events=EVENTS, device=dev):
             g_sh = _shadow_boundary_term(scene, camera, config, base_key,
                                          verts, wl, shadow_budget,
                                          edge_samples, edge_eps)
@@ -506,6 +494,7 @@ def _interior(scene: Scene, camera: Camera, config: RenderConfig, verts,
     return loss, g_int
 
 
+@span("gradients.vertex_grad")
 def vertex_grad(scene: Scene, camera: Camera, config: RenderConfig,
                 base_key: torch.Tensor, edge_samples: int = 8,
                 edge_eps: float = 1e-3, spp: int = 1, edge_keep=None,
@@ -532,7 +521,7 @@ def vertex_grad(scene: Scene, camera: Camera, config: RenderConfig,
     verts = triangle_vertices(scene.triangles)
     u, v, pids, _ = _pixel_order(config, dev)
     keys = sampling.ray_key(base_key, pids, 0)
-    with _timed("interior", dev):
+    with span("gradients.interior", events=EVENTS, device=dev):
         loss, g_int = _interior(scene, camera, config, verts, keys, u, v,
                                 pixel_chunk, mesh)
 

@@ -39,6 +39,7 @@ import torch
 
 from .. import constants as C
 from ..types import Hit, Scene, TensorData, Triangles, entry_device
+from ..utils.metrics import counters, host_value, span
 from . import intersect as nv
 from . import kernels
 from .bvh import build_triangle_bvh
@@ -56,7 +57,7 @@ TILE_TOP_S = 48            # candidate supers per tile window
 TILE_TOP_M = 64            # candidate blocks per tile window
 
 # Iterations of the refill loops since the last reset, for reports.
-LOOPS = {"refill": 0, "dense": 0}
+LOOPS = counters("block_traversal.LOOPS", {"refill": 0, "dense": 0})
 
 
 @dataclasses.dataclass
@@ -278,6 +279,7 @@ def _smallest(x: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
+@span("traversal._candidates")
 def _candidates(grid: BlockGrid, o, d, cap=None, floor=None, st=ST,
                 top_s=None, top_m=None):
     """One window of candidate blocks per `st`-ray bundle.  Returns
@@ -368,6 +370,7 @@ def _banded_balanced(grid, cg, ce, rays_in, m, any_hit):
     return t_out, s_out, st_out
 
 
+@span("traversal._refill_exact")
 def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
     """Per-ray exact windowed refill, shared by every traversal.  Rays with
     floor_r < t are unresolved; up to `nr` of them at a time are each
@@ -394,7 +397,7 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
     stall = 0
     while it < 256 and stall < 4:
         unres = floor_r < t
-        n_before = int(unres.sum())
+        n_before = host_value(unres.sum(), "traversal")
         if n_before == 0:
             break
         ridx = gather_unresolved(t, floor_r)
@@ -412,28 +415,29 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
         sid = sid.index_put((ridx,), torch.where(better, s2, sid[ridx]))
         floor_r = floor_r.index_put((ridx,),
                                     torch.maximum(floor_r[ridx], cut2))
-        n_after = int((floor_r < t).sum())
+        n_after = host_value((floor_r < t).sum(), "traversal")
         stall = 0 if n_after < n_before else stall + 1
         it += 1
         LOOPS["refill"] += 1
 
     # Dense backstop: the naive oracle over the whole triangle table.
-    while bool((floor_r < t).any()):
-        ridx = gather_unresolved(t, floor_r)
-        o_g = rays[ridx, 0:3]
-        d_g = rays[ridx, 3:6]
-        prev_f = rays[ridx, 7]
-        pk_g = torch.where(prev_f >= 0, C.PRIM_TRIANGLE,
-                           C.PRIM_NONE).to(torch.int32)
-        pi_g = prev_f.to(torch.int32)
-        t_r = t[ridx]
-        td, idd = nv.closest_triangles(tris, o_g, d_g, t_r, pk_g, pi_g)
-        better = idd >= 0
-        t = t.index_put((ridx,), torch.where(better, td, t_r))
-        sid = sid.index_put((ridx,), torch.where(
-            better, idd.to(torch.float32), sid[ridx]))
-        floor_r = floor_r.index_put((ridx,), torch.full_like(t_r, _BIG))
-        LOOPS["dense"] += 1
+    with span("traversal.dense"):
+        while host_value((floor_r < t).any(), "traversal"):
+            ridx = gather_unresolved(t, floor_r)
+            o_g = rays[ridx, 0:3]
+            d_g = rays[ridx, 3:6]
+            prev_f = rays[ridx, 7]
+            pk_g = torch.where(prev_f >= 0, C.PRIM_TRIANGLE,
+                               C.PRIM_NONE).to(torch.int32)
+            pi_g = prev_f.to(torch.int32)
+            t_r = t[ridx]
+            td, idd = nv.closest_triangles(tris, o_g, d_g, t_r, pk_g, pi_g)
+            better = idd >= 0
+            t = t.index_put((ridx,), torch.where(better, td, t_r))
+            sid = sid.index_put((ridx,), torch.where(
+                better, idd.to(torch.float32), sid[ridx]))
+            floor_r = floor_r.index_put((ridx,), torch.full_like(t_r, _BIG))
+            LOOPS["dense"] += 1
     return t, sid
 
 
@@ -703,6 +707,7 @@ _TRAVERSALS = {"banded": traverse, "tilemt": traverse_tilemt,
 DEFAULT_MODE = "tilemt"
 
 
+@span("traversal.intersect_scene_blocks")
 def intersect_scene_blocks(scene: Scene, o, d, prev_kind, prev_id,
                            t_max=_BIG, mode: str = None,
                            differentiable: bool = False) -> Hit:
@@ -751,6 +756,7 @@ def intersect_scene_blocks(scene: Scene, o, d, prev_kind, prev_id,
 SHADOW_SEL = {}
 
 
+@span("traversal.occluded_blocks")
 def occluded_blocks(scene: Scene, o, d, max_dist, prev_kind, prev_id,
                     mode: str = None, **sel):
     """Shadow query over the whole scene (the JAX package's

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..utils.metrics import counters, span
 
 LANES = 128                    # triangles per block
 ST = C.SUBTILE                 # rays per band / subtile
@@ -48,7 +49,8 @@ NBP = 640                      # blocks per resident-table partition
 MU = 2e-3
 TREL = 3e-4
 
-LAUNCHES = {"banded": 0, "tilemt": 0, "tilebw": 0, "resident": 0}
+LAUNCHES = counters("kernels.LAUNCHES", {"banded": 0, "tilemt": 0,
+                                         "tilebw": 0, "resident": 0})
 
 
 def reset_launches() -> None:
@@ -654,6 +656,7 @@ def _order_scratch(bp, dev):
     return torch.empty(2 * (bp // TILE), dtype=torch.int32, device=dev)
 
 
+@span("kernels.traverse_banded")
 def traverse_banded(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     """Banded kernel (see banded_plain).  cand_gid/cand_entry are (Bp/ST,
     m); returns (t, slot, steps), each (Bp,) f32."""
@@ -670,6 +673,7 @@ def traverse_banded(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     return out[0], out[1], out[2]
 
 
+@span("kernels.traverse_tilemt")
 def traverse_tilemt(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     """Tile-MT kernel (see tilemt_plain).  cand_gid/cand_entry are
     (Bp/TILE, m); returns (Bp, 4) f32 [t, slot, rounds, 0]."""
@@ -687,6 +691,7 @@ def traverse_tilemt(tb, cand_gid, cand_entry, rays, m: int, any_hit: bool):
     return out
 
 
+@span("kernels.traverse_tile")
 def traverse_tile(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
                   tmg: float):
     """Baldwin-Weber tile kernel (see tile_plain).  tw is (NB, 8, 3*LANES);
@@ -708,6 +713,7 @@ def traverse_tile(tw, cand_gid, cand_entry, rays, m: int, any_hit: bool,
     return out
 
 
+@span("kernels.traverse_resident")
 def traverse_resident(tb, starts, glist, rays, m: int, n_parts: int,
                       g_n: int = GROUP):
     """Resident-table any-hit kernel (see resident_plain), g_n bands of ST

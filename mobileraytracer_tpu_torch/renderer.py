@@ -25,6 +25,7 @@ from .ops import block_traversal, grid
 from .shaders.engine import trace_image_sample
 from .types import (Camera, RenderConfig, Scene, entry_device,
                     scene_num_primitives)
+from .utils.metrics import host_value, span
 
 # Render lifecycle states (reference JNI_layer.hpp:12-14).
 STATE_IDLE = "IDLE"
@@ -33,6 +34,7 @@ STATE_FINISHED = "FINISHED"
 STATE_STOPPED = "STOPPED"
 
 
+@span("frame._pixel_order")
 def _pixel_order(config: RenderConfig, device=None):
     """Lane order: 4x4 image patches, patch-major, so consecutive lanes
     form coherent ray tiles.  Returns (u, v, pixel_ids, inverse
@@ -120,6 +122,7 @@ def accumulate_samples(scene: Scene, camera: Camera, config: RenderConfig,
     return accum, rays
 
 
+@span("frame.finish_frame")
 def finish_frame(accum: torch.Tensor, rays: torch.Tensor, inv: torch.Tensor,
                  config: RenderConfig) -> dict:
     """render_frame's dict from the whole film in lane order."""
@@ -135,6 +138,7 @@ def finish_frame(accum: torch.Tensor, rays: torch.Tensor, inv: torch.Tensor,
             "rays": rays}
 
 
+@span("frame.render_frame")
 def render_frame(scene: Scene, camera: Camera, config: RenderConfig,
                  base_key: torch.Tensor, max_point=None):
     """Full frame at `config.spp` samples, on the scene's device.  Returns
@@ -279,18 +283,21 @@ class Renderer:
         t0 = time.perf_counter()
         self.state = STATE_BUSY
         while self.sample < self.config.spp and not self._stop:
-            ts = time.perf_counter()
-            rgb, rays = render_sample(self.scene, self.camera, self.config,
-                                      self._key, self.sample, self.max_point)
-            accum = film.incremental_avg_float(self._accum, rgb,
-                                               self.sample + 1)
-            rays = int(rays)     # waits for the sample, accum included
-            # One reference swap: a poller sees a whole frame at some
-            # sample count.
-            self._accum = accum
-            self.sample += 1
-            self.total_rays += rays
-            self.fps = 1.0 / max(time.perf_counter() - ts, 1e-9)
+            with span("frame.render_sample"):
+                ts = time.perf_counter()
+                rgb, rays = render_sample(self.scene, self.camera,
+                                          self.config, self._key,
+                                          self.sample, self.max_point)
+                accum = film.incremental_avg_float(self._accum, rgb,
+                                                   self.sample + 1)
+                # Waits for the sample, accum included.
+                rays = host_value(rays, "frame")
+                # One reference swap: a poller sees a whole frame at some
+                # sample count.
+                self._accum = accum
+                self.sample += 1
+                self.total_rays += rays
+                self.fps = 1.0 / max(time.perf_counter() - ts, 1e-9)
             if callback is not None:
                 callback(self)
         self.render_seconds = time.perf_counter() - t0

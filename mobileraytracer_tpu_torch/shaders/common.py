@@ -10,6 +10,7 @@ from .. import constants as C
 from .. import sampling
 from ..ops import intersect
 from ..types import Hit, Scene
+from ..utils.metrics import span
 
 _X = (1.0, 0.0, 0.0)
 
@@ -143,6 +144,7 @@ def _light_samples(scene: Scene, k_pick, k_point):
     return lpos, lights.radiance[lidx], kind
 
 
+@span("walker.direct_lighting")
 def direct_lighting(scene: Scene, hit: Hit, keys: torch.Tensor,
                     samples_light: int, shadows: bool, occluded_fn=None,
                     mask=None, share_mask=None, share_width: int = 16,

@@ -40,10 +40,11 @@ from .. import constants as C
 from .. import sampling
 from ..ops import block_bvh, block_traversal, bvh, grid, intersect
 from ..types import RenderConfig, Scene
+from ..utils.metrics import counters, host_value, span
 from . import common
 
 # Walk iterations (chunk steps, or full-batch steps) since the last reset.
-WALK = {"steps": 0}
+WALK = counters("engine.WALK", {"steps": 0})
 
 
 class Tracer(NamedTuple):
@@ -305,6 +306,7 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         bkt_pspine=torch.zeros((b, kb), **no),
         bkt_open=torch.zeros((b, kb), **no))
 
+    @span("walker.step")
     def step(state: WalkState, keys, primary: bool = False):
         it = state.pops
         bb = state.sp.shape[0]
@@ -430,7 +432,8 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         # Small batches and the differentiable walk: full-batch steps
         # until drained.
         it = 0
-        while it < max_iters and bool(lane_live(state).any()):
+        while it < max_iters and host_value(lane_live(state).any(),
+                                            "walker"):
             state = step(state, keys)
             it += 1
             WALK["steps"] += 1
@@ -447,7 +450,7 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         it = 0
         while it < max_chunks:
             live = lane_live(state)
-            if not bool(live.any()):
+            if not host_value(live.any(), "walker"):
                 break
             if pathtracer:
                 # A slice of a permutation: no lane repeats.  Dead lanes
@@ -513,6 +516,7 @@ def shade_diffuse(scene: Scene, config: RenderConfig, tracer: Tracer, o, d):
     return rgb, torch.tensor(o.shape[0], dtype=torch.int32, device=o.device)
 
 
+@span("walker.trace_image_sample")
 def trace_image_sample(scene: Scene, config: RenderConfig, o, d, keys,
                        max_point=None, differentiable: bool = False):
     """Radiance of one sample of every lane, dispatched on the shader id
