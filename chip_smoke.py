@@ -1446,14 +1446,22 @@ def gradients_phase(scene, cam, card):
     def vg():
         return geom.vertex_grad(scene, cam, cfg, gkey, **vkw)
 
-    # Warm-up, under torch.profiler, with the banded batches recorded.
-    captured = {}
+    # Warm-up, under torch.profiler, with the banded batches and the two
+    # edge draws' arguments recorded.
+    captured, draws = {}, []
     restore = recording(captured, lambda kind, any_hit: (
         kind, "shadow (any-hit)" if any_hit else "closest"))
+    gumbel = K.gumbel_argmax
+
+    def record_draw(key, logits, k, table):
+        draws.append((key.clone(), logits.clone(), k))
+        return gumbel(key, logits, k, table)
+    K.gumbel_argmax = record_draw
     try:
         busy, events, top, _ = profile_device(vg, host_ops=False)
     finally:
         restore()
+        K.gumbel_argmax = gumbel
     err, _, _ = check_batches(10, captured)
     t_warm = time.perf_counter() - t_phase
 
@@ -1493,6 +1501,7 @@ def gradients_phase(scene, cam, card):
                         for k, (ms, n) in top.items())
             + f" [{card}]")
     if not (finite and launches["banded"] > 0 and launches["tilemt"] == 0
+            and launches["gumbel"] == 2
             and all(float(g.abs().max()) > 0 for g in grads.values())):
         raise AssertionError("the gradient call failed its checks")
 
@@ -1505,12 +1514,14 @@ def gradients_phase(scene, cam, card):
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
         l1, g1 = vg()
-        saved = K.traverse_tilemt, K.traverse_banded
+        saved = K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax
         K.traverse_tilemt, K.traverse_banded = K.tilemt_plain, K.banded_plain
+        K.gumbel_argmax = lambda key, logits, k, table: (
+            threefry.categorical(key, logits, k, table=table))
         try:
             l2, g2 = vg()
         finally:
-            K.traverse_tilemt, K.traverse_banded = saved
+            K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax = saved
         same = torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k])
                                            for k in g1)
         say(10, f"vertex_grad under deterministic algorithms, kernels vs "
@@ -1522,18 +1533,7 @@ def gradients_phase(scene, cam, card):
         say(10, f"held against the plain versions at "
                 f"{time.perf_counter() - t_phase:.1f} s")
         golden_grads(dev)
-        # The Gumbel-max draw on the card against the CPU's (which the CPU
-        # tests hold bit for bit against jax.random.categorical), streamed
-        # in row and column blocks.
-        logits = torch.log(torch.linspace(1e-3, 2.0, 5000))
-        draws = [threefry.categorical(sampling.fold_in(
-            sampling.prng_key(3, d), 0x5ED6E), logits.to(d), 300,
-            block=4096).cpu() for d in (dev, "cpu")]
-        say(10, f"Gumbel-max draws (300 rows of 5,000 logits, blocks of "
-                f"4,096) on the card bitwise equal to the CPU's: "
-                f"{torch.equal(*draws)}")
-        if not torch.equal(*draws):
-            raise AssertionError("the card's Gumbel-max draws differ")
+        gumbel_draws(draws, card)
 
         # The trainer: 3 recovery steps toward the frame at the true kd.
         target = mrt.render_frame(scene, cam, cfg, gkey)["image"]
@@ -1586,6 +1586,42 @@ def gradients_phase(scene, cam, card):
                vg_loss=float(loss), vg=cpu(grads), vg_ms=call_ms,
                train_loss=float(tl), train=cpu(tg), per_step=per_step)
     return launches, err, ref
+
+
+def gumbel_draws(draws, card):
+    """Phase 10: the Gumbel-max kernel against its plain version,
+    threefry.categorical (which the CPU tests hold bit for bit against
+    jax.random.categorical), on the card at a gradient call's two draws
+    (key, logits, rows): bitwise, then timed beside its bound."""
+    from mobileraytracer_tpu_torch import threefry
+    from mobileraytracer_tpu_torch.ops import _build
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    ki = _build.kernel_info("gumbel")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(10, f"gumbel_argmax: {ki['regs']} registers, {ki['local_bytes']} "
+            f"spilled bytes per thread, {ki['static_smem']} B of shared "
+            f"memory, {ki['threads']} threads per block -> "
+            f"{ki['blocks_per_sm']} blocks per SM = "
+            f"{ki['blocks_per_sm'] * ki['threads'] // 32} of 64 warps, "
+            f"{ki['blocks_per_sm'] * sms} blocks at once [{card}]")
+    for key, logits, k in draws:
+        table = threefry._gumbel_table(logits.device)
+        got = K.gumbel_argmax(key, logits, k, table)
+        want = threefry.categorical(key, logits, k)
+        same = torch.equal(got, want)
+        k_ms = cuda_ms(lambda: K.gumbel_argmax(key, logits, k, table), 10)
+        p_ms = cuda_ms(lambda: threefry.categorical(key, logits, k), 1)
+        e = logits.shape[0]
+        bound = K.gumbel_bound_ms(k, e)
+        say(10, f"gumbel_argmax, {k} x {e} draws ({k * e} counts, "
+                f"{k * e * K.GUMBEL_INT_OPS:.4e} int ops): {k_ms:.4f} ms by "
+                f"CUDA events, plain version {p_ms:.3f} ms, bound "
+                f"{bound:.4f} ms (int32), share {bound / k_ms:.3f}; "
+                f"{len(torch.unique(got))} distinct edges; bitwise equal to "
+                f"the plain version: {same} [{card}]")
+        if not same:
+            raise AssertionError(f"gumbel_argmax {k} x {e}: kernel != plain "
+                                 f"version")
 
 
 # Phase 11: the jobs of ranks that share the card, (backend, ranks, what

@@ -15,8 +15,9 @@ edges).  The bounce >= 2 shadow term is left out, as in the JAX package
 (PARITY.md section 11).
 
 Edges are either all enumerated or drawn by length importance with the
-Gumbel-max draw of `jax.random.categorical` (threefry.categorical), so the
-same key picks the same edges in both packages.  Jacobians of the factor
+Gumbel-max draw of `jax.random.categorical` (`kernels.gumbel_argmax`, one
+CUDA kernel on the card, `threefry.categorical` on the CPU), so the same
+key picks the same edges in both packages.  Jacobians of the factor
 map come from torch.func (jacrev, and jacfwd for the shadow curve) under
 vmap, as the JAX package takes them; the boundary terms are values, not
 taped.
@@ -39,6 +40,7 @@ import torch
 from .. import constants as C
 from .. import sampling, threefry
 from ..cameras import fast_arctan
+from ..ops import kernels
 from ..ops.intersect import _cross, _dot
 from ..parallel import mesh as pmesh
 from ..shaders import common
@@ -243,7 +245,8 @@ def _draw_edges(key, w_e: torch.Tensor, budget: int):
     over log-weights) and each draw's weight 1 / (budget p_e)."""
     with span("gradients.draws", events=EVENTS, device=w_e.device):
         logits = threefry.xla_log(torch.clamp(w_e, min=1e-30))
-        sel = threefry.categorical(key, logits, budget)
+        sel = kernels.gumbel_argmax(key, logits, budget,
+                                    threefry._gumbel_table(w_e.device))
     p_e = w_e[sel] / torch.clamp(torch.sum(w_e), min=1e-30)
     mc_w = torch.where(p_e > 0, 1.0 / (budget * p_e), 0.0)
     return sel, mc_w

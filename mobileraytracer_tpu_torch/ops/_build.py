@@ -1,4 +1,5 @@
-"""Builds and loads the CUDA traversal kernels (csrc/*.cu).
+"""Builds and loads the CUDA kernels (csrc/*.cu): the four traversal
+kernels and the Gumbel-max draw.
 
 `nvcc` compiles the sources into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so a build takes
@@ -31,7 +32,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNELS = ("banded", "tilemt", "tilebw", "resident")
+KERNELS = ("banded", "tilemt", "tilebw", "resident", "gumbel")
 # Launcher argument types: the device pointers, the ints, then any host
 # pointer and the stream; each kernel's mrt_<name>_info takes an int[6]
 # (resident's also its bands per program).
@@ -41,6 +42,7 @@ _FUNCS = {
     "mrt_traverse_tilebw": [_P] * 6 + [_I] * 3
                            + [ctypes.POINTER(ctypes.c_float), _P],
     "mrt_traverse_resident": [_P] * 5 + [_I] * 4 + [_P],
+    "mrt_gumbel_argmax": [_P] * 4 + [_I] * 2 + [_P],
     **{f"mrt_{k}_info": [ctypes.POINTER(_I)] for k in KERNELS},
     "mrt_resident_info": [ctypes.POINTER(_I), _I],
 }

@@ -1,20 +1,24 @@
-"""The four traversal kernels: public wrappers, plain PyTorch versions and
+"""The port's CUDA kernels: public wrappers, plain PyTorch versions and
 launch counters.
 
-Each replaces one Pallas kernel of mobileraytracer_tpu/ops/pallas_bvh.py:
+Each of the four traversal kernels replaces one Pallas kernel of
+mobileraytracer_tpu/ops/pallas_bvh.py:
 `traverse_banded` the banded one (`_make_kernel` / `_traverse_padded`),
 `traverse_tilemt` the tile-MT one (`_make_tilemt_kernel` /
 `_traverse_tilemt_padded`), `traverse_tile` the Baldwin-Weber tile one
 (`_make_tile_kernel` / `_traverse_tile_padded`) and `traverse_resident`
 the resident-table one (`_make_resident_kernel` /
-`_traverse_resident_padded`).  The CUDA kernels live in `../csrc/` and
-are built at first use by `_build.py`.
+`_traverse_resident_padded`).  The fifth, `gumbel_argmax`, replaces no
+Pallas kernel: it is the Gumbel-max draw of `jax.random.categorical`
+(`threefry.categorical`, its plain version), which XLA lowered to
+elementwise ops.  The CUDA kernels live in `../csrc/` and are built at
+first use by `_build.py`.
 
 A wrapper given CPU tensors runs the kernel's plain version; given CUDA
 tensors it launches the kernel or raises.  There is no fallback from one
 to the other.  `LAUNCHES` counts kernel launches (never plain runs).
 
-Shared inputs:
+Shared inputs of the traversal kernels:
   tb          (NB, 16, 128) f32  triangle blocks (rows 0-8 a/ab/ac, 9 valid,
                                  10 global slot id)
   cand_gid    int32, cand_entry f32: per-bundle candidate block ids and
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import threefry
 from ..utils.metrics import counters, span
 
 LANES = 128                    # triangles per block
@@ -50,7 +55,8 @@ MU = 2e-3
 TREL = 3e-4
 
 LAUNCHES = counters("kernels.LAUNCHES", {"banded": 0, "tilemt": 0,
-                                         "tilebw": 0, "resident": 0})
+                                         "tilebw": 0, "resident": 0,
+                                         "gumbel": 0})
 
 
 def reset_launches() -> None:
@@ -573,6 +579,19 @@ def traversal_bound(exits, stage_ops, io_bytes: int, blocks: int,
             "unfused_ms": ops / PEAK_FP32_UNFUSED * 1e3}
 
 
+# The Gumbel-max kernel's work: about 75 int32 operations a count (the 20
+# rounds' add, rotate and xor, the key injections, the output's xor and
+# shift, the 64-bit index) over the H100's int32 rate, 132 SMs x 64 lanes
+# x 1.98 GHz (csrc/gumbel_argmax.cu).
+GUMBEL_INT_OPS = 75
+PEAK_INT32 = 132 * 64 * 1.98e9   # operations / s
+
+
+def gumbel_bound_ms(k: int, e: int) -> float:
+    """The least time one H100 could take for a (k, E) Gumbel-max draw."""
+    return k * e * GUMBEL_INT_OPS / PEAK_INT32 * 1e3
+
+
 def visited_blocks(cand_gid, rounds) -> int:
     """Distinct block ids among the first rounds[i] entries of each list
     cand_gid[i] (rounds per list, clamped to the list length m)."""
@@ -586,16 +605,20 @@ def visited_blocks(cand_gid, rounds) -> int:
 # Wrappers.
 # ---------------------------------------------------------------------------
 
-def _check_tensors(dev, named):
+def _check_placed(dev, named, on="rays"):
     for name, x, dt in named:
         if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
+            raise ValueError(f"{name} is on {x.device}, {on} on {dev}")
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+
+
+def _check_tensors(dev, named):
+    _check_placed(dev, named)
     if dev.type == "cuda" and ST != 16:
         raise ValueError(f"the CUDA kernels are built for 16-ray subtiles, "
                          f"not MRT_SUBTILE={ST}")
@@ -749,3 +772,30 @@ def traverse_resident(tb, starts, glist, rays, m: int, n_parts: int,
                 ctypes.c_int(bp // (g_n * ST)), ctypes.c_int(n_parts),
                 ctypes.c_int(m), ctypes.c_int(g_n))
     return out[0], out[1]
+
+
+@span("kernels.gumbel_argmax")
+def gumbel_argmax(key, logits, k: int, table):
+    """Gumbel-max draw (see threefry.categorical, its plain version): k
+    samples of the categorical over the (E,) float32 logits under the (2,)
+    int64 key, with `table` the (2^23,) float32 Gumbel table
+    (`threefry._gumbel_table`).  Returns (k,) int64 columns."""
+    dev = logits.device
+    _check_placed(dev, (("key", key, torch.int64),
+                        ("logits", logits, torch.float32),
+                        ("table", table, torch.float32)), on="logits")
+    e = logits.shape[0]
+    if tuple(key.shape) != (2,) or logits.dim() != 1 or not 0 < e < 2**31 \
+            or tuple(table.shape) != (1 << 23,) or not 0 <= k < 2**31:
+        raise ValueError(f"want a (2,) key, (E,) logits with 0 < E < 2^31, a"
+                         f" (2^23,) table and 0 <= k < 2^31, got "
+                         f"{tuple(key.shape)}, {tuple(logits.shape)}, "
+                         f"{tuple(table.shape)}, k={k}")
+    if dev.type == "cpu":
+        return threefry.categorical(key, logits, k, table=table)
+    packed = torch.zeros(k, dtype=torch.int64, device=dev)
+    if k:
+        _launch("mrt_gumbel_argmax", "gumbel", dev, _ptr(key), _ptr(logits),
+                _ptr(table), _ptr(packed), ctypes.c_int(k), ctypes.c_int(e))
+    # The low word holds 0xFFFFFFFF - column (csrc/gumbel_argmax.cu).
+    return 0xFFFFFFFF - (packed & 0xFFFFFFFF)

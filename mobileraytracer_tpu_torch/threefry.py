@@ -173,17 +173,19 @@ def _gumbel_table(device) -> torch.Tensor:
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor, k: int,
-                block: int = 1 << 26) -> torch.Tensor:
+                block: int = 1 << 26, table=None) -> torch.Tensor:
     """`jax.random.categorical(key, logits, shape=(k,))` for a (2,) key and
     (E,) float32 logits: row i of the (k, E) Gumbel draw holds flat indices
     i E .. i E + E - 1, and each row's first argmax of gumbel + logits is
     its sample.  Rows and columns stream in blocks of at most `block`
     draws with a running argmax (a later column block wins only when
-    strictly larger), so the (k, E) array never exists.  Returns (k,)
-    int64."""
+    strictly larger), so the (k, E) array never exists.  `table` replaces
+    the Gumbel table (a test's all-zero table leaves the logits alone).
+    Returns (k,) int64.  The plain version of the CUDA kernel
+    `kernels.gumbel_argmax`."""
     e = logits.shape[0]
     dev = logits.device
-    tab = _gumbel_table(dev)
+    tab = _gumbel_table(dev) if table is None else table
     k1, k2 = key[0], key[1]
     cols = min(e, block)
     rows = max(1, block // cols)

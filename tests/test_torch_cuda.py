@@ -1,9 +1,10 @@
-"""The four CUDA traversal kernels against their plain PyTorch versions,
-on the card, and frames of the PathTracer and of the grid and escape-index
-BVH on the card.  Imports neither jax nor the JAX package (nor does
-test_torch_kernel_design, whose hand-made blocks it uses), so it runs on a
-machine with PyTorch for CUDA alone (the last test starts two ranks of
-tests/torch_mesh_worker.py, which imports no jax either):
+"""The four CUDA traversal kernels and the Gumbel-max draw kernel against
+their plain PyTorch versions, on the card, and frames of the PathTracer
+and of the grid and escape-index BVH on the card.  Imports neither jax
+nor the JAX package (nor does test_torch_kernel_design, whose hand-made
+blocks it uses), so it runs on a machine with PyTorch for CUDA alone (the
+last test starts two ranks of tests/torch_mesh_worker.py, which imports
+no jax either):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -s
 
@@ -18,7 +19,7 @@ import torch
 
 from mobileraytracer_tpu_torch import bench_scenes, cameras, sampling, scenes
 from mobileraytracer_tpu_torch import constants as C
-from mobileraytracer_tpu_torch import renderer
+from mobileraytracer_tpu_torch import renderer, threefry
 from mobileraytracer_tpu_torch.ops import block_traversal as bt
 from mobileraytracer_tpu_torch.ops import bvh, grid
 from mobileraytracer_tpu_torch.ops import kernels as K
@@ -172,6 +173,12 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_scene):
     occ_b = bt.traverse(scene.bvh, scene.triangles, o, d, md, pk, pi,
                         any_hit=True)[1] >= 0
     assert torch.equal(occ, occ_b)
+    from mobileraytracer_tpu_torch.diff import geom
+    w_e = torch.rand(5000, generator=torch.Generator().manual_seed(0))
+    sel, _ = geom._draw_edges(sampling.prng_key(1, o.device),
+                              w_e.to(o.device), 64)
+    assert K.LAUNCHES["gumbel"] == 1
+    assert sel.device == o.device and sel.shape == (64,)
 
 
 # ---------------------------------------------------------------------------
@@ -477,23 +484,96 @@ def test_grid_and_escape_bvh_frames_on_the_card(shader):
         _pt_match(frames[acc][0], ref)
 
 
+def _gumbel_plain(key, logits, k, table):
+    return threefry.categorical(key, logits, k, table=table)
+
+
 def _plain_kernels():
-    """Puts the plain versions in the tile-MT and banded wrappers' place;
-    returns the function that puts the wrappers back."""
-    saved = K.traverse_tilemt, K.traverse_banded
-    K.traverse_tilemt, K.traverse_banded = K.tilemt_plain, K.banded_plain
+    """Puts the plain versions in the tile-MT, banded and Gumbel-max
+    wrappers' place; returns the function that puts the wrappers back."""
+    saved = K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax
+    K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax = (
+        K.tilemt_plain, K.banded_plain, _gumbel_plain)
 
     def restore():
-        K.traverse_tilemt, K.traverse_banded = saved
+        K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax = saved
     return restore
+
+
+# ---------------------------------------------------------------------------
+# The Gumbel-max draw kernel (csrc/gumbel_argmax.cu) against
+# threefry.categorical: a tile is 2,048 columns by 16 rows, and columns
+# 256 apart share a thread.
+# ---------------------------------------------------------------------------
+
+def _draw_inputs(e, dev):
+    rng = np.random.default_rng(e)
+    logits = torch.from_numpy(
+        np.log(rng.uniform(1e-3, 2.0, e)).astype(np.float32)).to(dev)
+    return sampling.fold_in(sampling.prng_key(3, dev), 0x5ED6E), logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 300, 1024])
+@pytest.mark.parametrize("e", [1, 37, 5000, 993552])
+def test_gumbel_kernel_equals_plain(e, k):
+    dev = _need_cuda()
+    key, logits = _draw_inputs(e, dev)
+    table = threefry._gumbel_table(dev)
+    before = K.LAUNCHES["gumbel"]
+    got = K.gumbel_argmax(key, logits, k, table)
+    assert K.LAUNCHES["gumbel"] == before + 1
+    want = threefry.categorical(key, logits, k)
+    assert torch.equal(got, want)
+    if e > 1 and k > 1:
+        assert len(torch.unique(got)) > 1
+
+
+@pytest.mark.cuda
+def test_gumbel_kernel_equals_plain_past_two_to_the_32():
+    """k E > 2^32: the rows past the boundary hash counts whose hi word
+    is 1."""
+    dev = _need_cuda()
+    e, k = 993552, 4600
+    assert (k - 200) * e > 2 ** 32
+    key, logits = _draw_inputs(e, dev)
+    got = K.gumbel_argmax(key, logits, k, threefry._gumbel_table(dev))
+    assert torch.equal(got, threefry.categorical(key, logits, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero", [0.0, -0.0])
+def test_gumbel_kernel_ties_go_to_the_first_column(zero):
+    """An all-zero table (+0.0 or -0.0) leaves each row's values the
+    logits: their maximum, 0, sits at columns in one warp, one thread
+    and three tiles, -0.0 at the first and +0.0 at the others.  Every row
+    draws the first, as the plain version does; and a NaN logit, larger
+    than any value for torch.argmax, is drawn at its first column."""
+    dev = _need_cuda()
+    e, k = 20000, 300
+    logits = -torch.linspace(1.0, 2.0, e)
+    ties = [3001, 3002, 3257, 9000, 17999]
+    logits[ties] = 0.0
+    logits[ties[0]] = -0.0
+    logits = logits.to(dev)
+    key = sampling.prng_key(5, dev)
+    table = torch.full((1 << 23,), zero, device=dev)
+    got = K.gumbel_argmax(key, logits, k, table)
+    assert torch.equal(got, torch.full((k,), ties[0], device=dev))
+    assert torch.equal(got, threefry.categorical(key, logits, k, table=table))
+    logits[[7000, 12000]] = float("nan")
+    got = K.gumbel_argmax(key, logits, k, threefry._gumbel_table(dev))
+    assert torch.equal(got, torch.full((k,), 7000, device=dev))
+    assert torch.equal(got, threefry.categorical(key, logits, k))
 
 
 @pytest.mark.cuda
 def test_vertex_grad_on_the_card_equals_plain_versions(cuda_scene):
     """vertex_grad at 64x64 on the 20k proxy (silhouette and shadow edge
-    draws): the gradient path launches banded, never tile-MT, and under
-    deterministic algorithms equals the same call with the plain
-    versions in the kernels' place, bit for bit."""
+    draws): the gradient path launches banded, never tile-MT, and the
+    Gumbel-max kernel once a draw, and under deterministic algorithms
+    equals the same call with the plain versions in the kernels' place,
+    bit for bit."""
     from mobileraytracer_tpu_torch.diff import geom
     scene = cuda_scene[0]
     _, cam, _ = bench_scenes.conference_proxy(target_prims=20000)
@@ -515,6 +595,7 @@ def test_vertex_grad_on_the_card_equals_plain_versions(cuda_scene):
     finally:
         torch.use_deterministic_algorithms(False)
     assert launches["banded"] > 0 and launches["tilemt"] == 0, launches
+    assert launches["gumbel"] == 2, launches
     assert torch.equal(loss, loss_p)
     for k in g:
         assert torch.isfinite(g[k]).all()

@@ -213,7 +213,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     for a, b in zip(out4, ref4):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert K.LAUNCHES == {"banded": 0, "tilemt": 0, "tilebw": 0,
-                          "resident": 0}
+                          "resident": 0, "gumbel": 0}
     with pytest.raises(ValueError):
         K.traverse_banded(tg.tb, _t(cg), _t(ce), _t(rays[:100]), m, False)
     with pytest.raises(TypeError):

@@ -138,9 +138,10 @@ def test_vertices_and_edge_topology_match_jax():
         0].triangles).sum() == 4
 
 
-@pytest.mark.parametrize("e, k, block", [(37, 64, 1 << 24),
-                                         (5000, 300, 4096),
-                                         (1, 5, 1 << 24)])
+DRAW_SHAPES = [(37, 64, 1 << 24), (5000, 300, 4096), (1, 5, 1 << 24)]
+
+
+@pytest.mark.parametrize("e, k, block", DRAW_SHAPES)
 def test_gumbel_max_draw_matches_jax(e, k, block):
     """threefry.categorical equals jax.random.categorical(key, logits,
     shape=(k,)) bit for bit; block 4096 streams 300 rows of 5,000 logits
@@ -154,6 +155,30 @@ def test_gumbel_max_draw_matches_jax(e, k, block):
     got = threefry.categorical(tkey, torch.from_numpy(logits), k,
                                block=block).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("e, k, block", DRAW_SHAPES)
+def test_gumbel_argmax_wrapper_takes_the_plain_version_on_the_cpu(e, k,
+                                                                   block):
+    """kernels.gumbel_argmax on CPU tensors returns threefry.categorical's
+    draws bit for bit (streamed in `block`s there) and launches nothing;
+    the CUDA kernel is held against the same plain version on the card
+    (tests/test_torch_cuda.py)."""
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    rng = np.random.default_rng(e)
+    logits = torch.from_numpy(
+        np.log(rng.uniform(1e-3, 2.0, e)).astype(np.float32))
+    key = sampling.fold_in(sampling.prng_key(3), 0x5ED6E)
+    before = K.LAUNCHES["gumbel"]
+    got = K.gumbel_argmax(key, logits, k, threefry._gumbel_table("cpu"))
+    assert K.LAUNCHES["gumbel"] == before == 0
+    assert got.dtype == torch.int64 and got.shape == (k,)
+    assert torch.equal(got, threefry.categorical(key, logits, k,
+                                                 block=block))
+    with pytest.raises(TypeError):
+        K.gumbel_argmax(key.int(), logits, k, threefry._gumbel_table("cpu"))
+    with pytest.raises(ValueError):
+        K.gumbel_argmax(key, logits, k, torch.zeros(1 << 22))
 
 
 def test_xla_log_and_high_counter_words_match_jax():
