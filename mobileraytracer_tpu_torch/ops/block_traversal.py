@@ -27,10 +27,11 @@ Every function keeps the JAX package's name, shapes and tie rules:
 `lax.top_k` becomes a stable sort (lower index first on ties), `argsort`s
 are stable, and `mode="drop"` scatters write to a spare slot that is then
 cut off.  The JAX `while_loop`s are Python loops; each test of their
-condition waits for the device.
+condition waits for the device, except in the refill under `speculative`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -38,7 +39,8 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..types import Hit, Scene, TensorData, Triangles, entry_device
+from ..types import (Hit, Scene, TensorData, Triangles, device_const,
+                     entry_device)
 from ..utils.metrics import counters, host_value, span
 from . import intersect as nv
 from . import kernels
@@ -58,6 +60,15 @@ TILE_TOP_M = 64            # candidate blocks per tile window
 
 # Iterations of the refill loops since the last reset, for reports.
 LOOPS = counters("block_traversal.LOOPS", {"refill": 0, "dense": 0})
+# The exact refill's batches: its loops, the unresolved rays they gathered
+# and the banded lanes they launched (padding included).
+REFILL = counters("block_traversal.REFILL",
+                  {"loops": 0, "rays": 0, "lanes": 0})
+# A refill loop gathers every unresolved ray up to this many, padded to the
+# power of two at or above their count.  65,536 rays are 1,048,576 banded
+# lanes; their candidate windows gather 1 GB of block rows (32 supers of 16
+# blocks a ray) and hold several 134 MB (ray, block) arrays.
+REFILL_CAP = 65536
 
 
 @dataclasses.dataclass
@@ -370,20 +381,54 @@ def _banded_balanced(grid, cg, ce, rays_in, m, any_hit):
     return t_out, s_out, st_out
 
 
+def _refill_batch(n: int) -> int:
+    """Rays a refill loop gathers for n unresolved ones: the power of two
+    at or above n, at least GROUP (a banded program) and at most
+    REFILL_CAP."""
+    return min(REFILL_CAP, max(GROUP, 1 << max(n - 1, 0).bit_length()))
+
+
+# While `speculative(stats)` is open (a CUDA graph of a walk step being
+# captured, shaders/engine.py), the refill reads nothing from the device:
+# it runs one loop of each of these sizes (rays gathered, capped at the
+# query's own power of two) whatever the count, and adds to `stats`
+# (int64 [unresolved, loops, rays, lanes]) whether a ray was left
+# unresolved, the loops that gathered a ray, their rays and the lanes
+# launched.  A step that leaves a ray unresolved is run again without it.
+SPECULATIVE_BATCHES = (REFILL_CAP, 2048)
+_speculation = None
+
+
+@contextlib.contextmanager
+def speculative(stats: torch.Tensor):
+    """Runs the refills inside the block speculatively into `stats`."""
+    global _speculation
+    prev, _speculation = _speculation, stats
+    try:
+        yield stats
+    finally:
+        _speculation = prev
+
+
 @span("traversal._refill_exact")
 def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
     """Per-ray exact windowed refill, shared by every traversal.  Rays with
-    floor_r < t are unresolved; up to `nr` of them at a time are each
-    duplicated ST-fold into a subtile of their own (the interval hull then
-    is the ray's exact slab bounds) and walked through the next window.
-    Rays left after 256 rounds, or 4 rounds without progress, go through
-    the dense naive scan.  Returns (t, sid)."""
+    floor_r < t are unresolved; each loop gathers all of them (up to
+    REFILL_CAP, in lane order), duplicates each ST-fold into a subtile of
+    its own (the interval hull then is the ray's exact slab bounds) and
+    walks it through its next window.  A ray's window depends only on its
+    own t and floor, so the batch never changes a hit.  While the
+    unresolved rays fit under the cap, every loop is a round of each of
+    them; rays left after 256 loops, or 4 loops in a row that resolve
+    none, go through the dense naive scan.  One device read a query and
+    one a loop: a loop's count after it is the next loop's count before.
+    Under `speculative`, the fixed loops of SPECULATIVE_BATCHES and no
+    read.  Returns (t, sid)."""
     m = min(grid.top_m, min(grid.top_s, grid.num_supers) * grid.bps)
-    nr = max(GROUP, min(2048, bp // ST // 4))
     dev = rays.device
     rrange = torch.arange(bp, dtype=torch.int64, device=dev)
 
-    def gather_unresolved(t, floor_r):
+    def gather_unresolved(t, floor_r, nr):
         """The first nr unresolved rays in lane order; unfilled slots hold
         ray 0 (their results are identical copies)."""
         unres = floor_r < t
@@ -393,14 +438,9 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
         ridx[torch.where(sel, pos, nr)] = rrange     # slot nr is the drop
         return ridx[:nr]
 
-    it = 0
-    stall = 0
-    while it < 256 and stall < 4:
-        unres = floor_r < t
-        n_before = host_value(unres.sum(), "traversal")
-        if n_before == 0:
-            break
-        ridx = gather_unresolved(t, floor_r)
+    def round_(t, sid, floor_r, nr):
+        """One window more for the first nr unresolved rays."""
+        ridx = gather_unresolved(t, floor_r, nr)
         lanes = ridx.repeat_interleave(ST)
         rays_c = rays[lanes]
         rays_c[:, 6] = t[lanes]
@@ -415,15 +455,44 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
         sid = sid.index_put((ridx,), torch.where(better, s2, sid[ridx]))
         floor_r = floor_r.index_put((ridx,),
                                     torch.maximum(floor_r[ridx], cut2))
+        return t, sid, floor_r
+
+    stats = _speculation
+    if stats is not None:
+        # A resolved ray 0 in the slots of a loop with nothing to gather
+        # finds no block below its own t, so its results stay as they are.
+        for size in SPECULATIVE_BATCHES:
+            nr = min(size, _refill_batch(bp))
+            n = (floor_r < t).sum()
+            t, sid, floor_r = round_(t, sid, floor_r, nr)
+            stats[1:] += torch.stack([(n > 0).long(),
+                                      torch.clamp(n, max=nr),
+                                      torch.full_like(n, nr * ST)])
+        stats[0] |= (floor_r < t).any().long()
+        return t, sid
+
+    n = host_value((floor_r < t).sum(), "traversal")
+    it = 0
+    stall = 0
+    while n and it < 256 and stall < 4:
+        nr = _refill_batch(n)
+        t, sid, floor_r = round_(t, sid, floor_r, nr)
         n_after = host_value((floor_r < t).sum(), "traversal")
-        stall = 0 if n_after < n_before else stall + 1
+        stall = 0 if n_after < n else stall + 1
         it += 1
         LOOPS["refill"] += 1
+        REFILL["loops"] += 1
+        REFILL["rays"] += min(n, nr)
+        REFILL["lanes"] += nr * ST
+        n = n_after
 
-    # Dense backstop: the naive oracle over the whole triangle table.
+    # Dense backstop: the naive oracle over the whole triangle table, nd
+    # rays at a time; each pass resolves every ray it gathers, so the count
+    # left needs no read.
+    nd = max(GROUP, min(2048, bp // ST // 4))
     with span("traversal.dense"):
-        while host_value((floor_r < t).any(), "traversal"):
-            ridx = gather_unresolved(t, floor_r)
+        while n:
+            ridx = gather_unresolved(t, floor_r, nd)
             o_g = rays[ridx, 0:3]
             d_g = rays[ridx, 3:6]
             prev_f = rays[ridx, 7]
@@ -437,6 +506,7 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
             sid = sid.index_put((ridx,), torch.where(
                 better, idd.to(torch.float32), sid[ridx]))
             floor_r = floor_r.index_put((ridx,), torch.full_like(t_r, _BIG))
+            n -= min(n, nd)
             LOOPS["dense"] += 1
     return t, sid
 
@@ -458,6 +528,8 @@ def _pack_rays(o, d, t0, prev_kind, prev_id, unit):
 
 
 def _t_init(t_init, o):
+    if not isinstance(t_init, torch.Tensor):
+        t_init = device_const(float(t_init), torch.float32, o.device)
     return torch.as_tensor(t_init, dtype=torch.float32,
                            device=o.device).expand(o.shape[0])
 

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from .. import constants as C
-from ..types import Hit, Lights, Planes, Scene, Spheres, Triangles
+from ..types import (Hit, Lights, Planes, Scene, Spheres, Triangles,
+                     device_const)
 
 _BIG = C.RAY_LENGTH_MAX
 _CHUNK = 512  # primitives per scan step; bounds the (B, chunk) tile size
@@ -304,8 +305,8 @@ def _fill_hit(scene: Scene, o, d, t_pl, id_pl, t_sp, id_sp, t_tr, id_tr,
     b = o.shape[0]
     ts = torch.stack([t_pl, t_sp, t_tr, t_li], 0)
     ids = torch.stack([id_pl, id_sp, id_tr, id_li], 0)
-    kinds = torch.tensor([C.PRIM_PLANE, C.PRIM_SPHERE, C.PRIM_TRIANGLE,
-                          C.PRIM_LIGHT], dtype=torch.int32, device=o.device)
+    kinds = device_const((C.PRIM_PLANE, C.PRIM_SPHERE, C.PRIM_TRIANGLE,
+                          C.PRIM_LIGHT), torch.int32, o.device)
     winner = torch.argmin(ts, dim=0)
     t = torch.gather(ts, 0, winner[None, :])[0]
     pid = torch.gather(ids, 0, winner[None, :])[0]

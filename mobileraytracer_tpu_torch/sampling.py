@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import threefry
+from .types import device_const
 
 TWO_PI = 6.283185307179586
 
@@ -83,13 +84,12 @@ def cosine_sample_hemisphere(keys: torch.Tensor,
     r2 = r[..., 1]
     cos_theta = torch.sqrt(r2)
     nsq = _sumsq(normal)
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=normal.dtype,
-                     device=normal.device)
+    z = device_const((0.0, 0.0, 1.0), normal.dtype, normal.device)
     normal = torch.where(nsq > 0.25, normal, z.expand_as(normal))
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=normal.dtype,
-                      device=normal.device).expand_as(normal)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=normal.dtype,
-                      device=normal.device).expand_as(normal)
+    ey = device_const((0.0, 1.0, 0.0), normal.dtype,
+                      normal.device).expand_as(normal)
+    ex = device_const((1.0, 0.0, 0.0), normal.dtype,
+                      normal.device).expand_as(normal)
     helper = torch.where(torch.abs(normal[..., :1]) > 0.1, ey, ex)
     u = _cross(helper, normal)
     u = u / torch.sqrt(torch.clamp(_sumsq(u), min=1e-20))

@@ -9,14 +9,14 @@ import torch
 from .. import constants as C
 from .. import sampling
 from ..ops import intersect
-from ..types import Hit, Scene
+from ..types import Hit, Scene, device_const
 from ..utils.metrics import span
 
 _X = (1.0, 0.0, 0.0)
 
 
 def _vec(v, like):
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    return device_const(tuple(v), like.dtype, like.device)
 
 
 def _sum3(a):

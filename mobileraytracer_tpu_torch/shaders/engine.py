@@ -23,7 +23,8 @@ into a chunk, step the chunk and scatter it back: in lane order for
 Whitted, in (direction octant, origin Morton code) order for the
 PathTracer.  The chunk layout is reproduced
 lane for lane, because with `nee_share_secondary` the NEE sharing groups
-follow it.
+follow it.  On a CUDA device a chunk step is one CUDA graph replay
+(`_StepGraph`), bit for bit the step run op by op.
 
 The differentiable walk is the JAX package's scan (engine.py:436-439):
 full-batch steps, none of them a primary step, with every update out of
@@ -31,6 +32,7 @@ place, so autograd records it; the traversal kernels run off the tape.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, NamedTuple
 
@@ -38,13 +40,16 @@ import torch
 
 from .. import constants as C
 from .. import sampling
-from ..ops import block_bvh, block_traversal, bvh, grid, intersect
+from ..ops import block_bvh, block_traversal, bvh, grid, intersect, kernels
 from ..types import RenderConfig, Scene
 from ..utils.metrics import counters, host_value, span
 from . import common
 
 # Walk iterations (chunk steps, or full-batch steps) since the last reset.
 WALK = counters("engine.WALK", {"steps": 0})
+# The compacted walk's chunks: how many ran, their slots and how many of
+# those held a live lane.
+CHUNKS = counters("engine.CHUNKS", {"chunks": 0, "slots": 0, "live": 0})
 
 
 class Tracer(NamedTuple):
@@ -269,6 +274,109 @@ def _scatter_back(state: WalkState, sub: WalkState, lanes, keep) -> None:
         getattr(state, f.name)[lanes] = getattr(sub, f.name)[keep]
 
 
+# The chunk steps of a compacted walk on a CUDA device replay one CUDA
+# graph of the step, so the host launches a step as one graph rather than
+# its thousands of operations one by one.  It is captured on first use,
+# per scene (its tensors' addresses and shapes), configuration and chunk
+# size, with the traversals' refills speculative
+# (block_traversal.speculative); a step that leaves a ray unresolved there
+# runs again, op by op, from the graph's inputs.  False: every step op by
+# op.
+GRAPH_STEPS = True
+GRAPHS_KEPT = 2
+_graphs: "collections.OrderedDict" = collections.OrderedDict()
+# Graph replays of chunk steps, and the steps among them run again op by
+# op (a ray left unresolved by the speculative refill).
+GRAPH = counters("engine.GRAPH", {"replays": 0, "reruns": 0})
+
+
+def clear_graphs() -> None:
+    """Drops the captured step graphs and their memory."""
+    _graphs.clear()
+
+
+def _tensors(obj):
+    """Every tensor under a TensorData tree, in field order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+
+
+class _StepGraph:
+    """One chunk step, `step(sub_state, sub_keys)`, as a CUDA graph over
+    static input tensors."""
+
+    def __init__(self, step, state: WalkState, keys, idx):
+        dev = keys.device
+        self.step = step
+        self.inp = state.map(lambda a: a[idx])
+        self.keys = keys[idx]
+        self.stats = torch.zeros(4, dtype=torch.int64, device=dev)
+
+        def run():
+            self.stats.zero_()
+            with block_traversal.speculative(self.stats):
+                return step(self.inp, self.keys)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            run()       # lazy initialisation stays out of the capture
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(kernels.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = run()
+        # Launches a replay makes; the capture launched nothing.
+        self.launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        kernels.LAUNCHES.update(before)
+
+    def load(self, state: WalkState, keys, idx) -> None:
+        """Gathers the chunk's lanes into the graph's inputs."""
+        for f in dataclasses.fields(state):
+            torch.index_select(getattr(state, f.name), 0, idx,
+                               out=getattr(self.inp, f.name))
+        torch.index_select(keys, 0, idx, out=self.keys)
+
+    def run(self) -> WalkState:
+        """The loaded chunk's step."""
+        self.graph.replay()
+        unresolved, loops, rays, lanes = host_value(self.stats, "walker")
+        GRAPH["replays"] += 1
+        if unresolved:
+            GRAPH["reruns"] += 1
+            return self.step(self.inp, self.keys)
+        for k, v in self.launches.items():
+            kernels.LAUNCHES[k] += v
+        block_traversal.LOOPS["refill"] += loops
+        block_traversal.REFILL["loops"] += loops
+        block_traversal.REFILL["rays"] += rays
+        block_traversal.REFILL["lanes"] += lanes
+        return self.out
+
+
+def _step_graph(step, scene, config, state, keys, idx):
+    """The cached graph of this chunk step, captured now if it is new;
+    None where steps run op by op."""
+    if not GRAPH_STEPS or keys.device.type != "cuda":
+        return None
+    tensors = list(_tensors(scene))
+    if any(t.requires_grad for t in tensors):
+        return None
+    key = (tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors), config,
+           idx.shape[0], tuple((t.shape, t.dtype) for t in _tensors(state)),
+           keys.dtype)
+    g = _graphs.get(key)
+    if g is None:
+        g = _graphs[key] = _StepGraph(step, state, keys, idx)
+        while len(_graphs) > GRAPHS_KEPT:
+            _graphs.popitem(last=False)
+    else:
+        _graphs.move_to_end(key)
+    return g
+
+
 def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
                    o: torch.Tensor, d: torch.Tensor, keys: torch.Tensor,
                    differentiable: bool = False):
@@ -450,33 +558,46 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         it = 0
         while it < max_chunks:
             live = lane_live(state)
-            if not host_value(live.any(), "walker"):
+            n_live = host_value(live.sum(), "walker")
+            if not n_live:
                 break
-            if pathtracer:
-                # A slice of a permutation: no lane repeats.  Dead lanes
-                # sorted past the live ones may fill a last partial chunk.
-                idx = _coherence_order(state, live)[:bc]
-                sub = step(state.map(lambda a: a[idx]), keys[idx])
-                keep, ki = slice(None), idx
-            else:
-                # The first bc live lanes in lane order; unfilled slots
-                # hold lane 0.
-                pos = torch.cumsum(live, 0) - 1
-                sel = live & (pos < bc)
-                idx = torch.zeros(bc + 1, dtype=torch.int64, device=dev)
-                idx[torch.where(sel, pos, bc)] = lanes   # slot bc: the drop
-                idx = idx[:bc]
-                sub = step(state.map(lambda a: a[idx]), keys[idx])
-                # Where lane 0 fills several slots the last one is
-                # written, as XLA's scatter writes duplicates in order.
-                last = torch.zeros(b, dtype=torch.int64,
-                                   device=dev).scatter_reduce(
-                    0, idx, slots, reduce="amax")
-                keep = slots == last[idx]
-                ki = idx[keep]
-            _scatter_back(state, sub, ki, keep)
+            with span("walker.compact"):
+                if pathtracer:
+                    # A slice of a permutation: no lane repeats.  Dead
+                    # lanes sorted past the live ones may fill a last
+                    # partial chunk.
+                    idx = _coherence_order(state, live)[:bc]
+                else:
+                    # The first bc live lanes in lane order; unfilled slots
+                    # hold lane 0.
+                    pos = torch.cumsum(live, 0) - 1
+                    sel = live & (pos < bc)
+                    idx = torch.zeros(bc + 1, dtype=torch.int64, device=dev)
+                    idx[torch.where(sel, pos, bc)] = lanes  # slot bc: drop
+                    idx = idx[:bc]
+                graph = _step_graph(step, scene, config, state, keys, idx)
+                if graph is None:
+                    sub_in = state.map(lambda a: a[idx])
+                else:
+                    graph.load(state, keys, idx)
+            sub = step(sub_in, keys[idx]) if graph is None else graph.run()
+            with span("walker.compact"):
+                if pathtracer:
+                    keep, ki = slice(None), idx
+                else:
+                    # Where lane 0 fills several slots the last one is
+                    # written, as XLA's scatter writes duplicates in order.
+                    last = torch.zeros(b, dtype=torch.int64,
+                                       device=dev).scatter_reduce(
+                        0, idx, slots, reduce="amax")
+                    keep = slots == last[idx]
+                    ki = idx[keep]
+                _scatter_back(state, sub, ki, keep)
             it += 1
             WALK["steps"] += 1
+            CHUNKS["chunks"] += 1
+            CHUNKS["slots"] += bc
+            CHUNKS["live"] += min(n_live, bc)
     if pathtracer:
         # Force-close what the pops budget left open: an unresolved spine
         # did not reach a light, as the reference's recursion past the

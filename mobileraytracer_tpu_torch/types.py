@@ -33,6 +33,24 @@ def entry_device(device=None) -> torch.device:
     return dev
 
 
+_CONSTS = {}
+
+
+def device_const(value, dtype, device) -> torch.Tensor:
+    """A constant tensor of `value` (a number or a tuple) on `device`,
+    made once per (value, dtype, device) and shared: callers only read
+    it.  Making it from a Python value copies from pageable host memory,
+    which waits for the device and is refused while a CUDA graph is being
+    captured, so the hot paths take their constants from here."""
+    dev = torch.device(device)
+    key = (value, dtype, dev)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS.setdefault(key, torch.tensor(value, dtype=dtype,
+                                                 device=dev))
+    return t
+
+
 class TensorData:
     """Mixin for dataclasses of tensors (and nested such dataclasses):
     `.to(device)` moves every tensor field, `.replace(**kw)` copies,

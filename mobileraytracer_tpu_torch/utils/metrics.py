@@ -221,14 +221,16 @@ def span(name: str, events: Optional[dict] = None, device=None):
 
 
 def host_value(x: torch.Tensor, layer: str):
-    """x.item(): the Python value of the device scalar x, which waits for
-    the device.  Counts the read in SYNCS[layer] and, with the tracer on,
-    times it as the span `<layer>.sync`."""
+    """x.item(): the Python value of the device scalar x (x.tolist() of a
+    small vector), which waits for the device.  Counts the read in
+    SYNCS[layer] and, with the tracer on, times it as the span
+    `<layer>.sync`."""
     SYNCS[layer] += 1
+    read = x.item if x.dim() == 0 else x.tolist
     if not _on:
-        return x.item()
+        return read()
     with _Span(layer + ".sync"):
-        return x.item()
+        return read()
 
 
 def summary() -> dict:

@@ -462,6 +462,36 @@ def test_pathtracer_golden_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("secondary", [True, False])
+def test_pathtracer_step_graphs_equal_op_by_op_steps(secondary):
+    """The compacted walk's chunk steps replayed as CUDA graphs, with the
+    speculative refill, give the frame of the op-by-op steps bit for bit,
+    and the same ray count."""
+    from mobileraytracer_tpu_torch.shaders import engine
+    dev = _need_cuda()
+    scene, cam, _ = bench_scenes.conference_proxy(target_prims=20000)
+    scene = bt.build(scene, device=dev)
+    cfg = RenderConfig(width=64, height=64, spp=2,
+                       shader=C.SHADER_PATHTRACER, accelerator=C.ACC_BVH,
+                       nee_share=128, nee_reverse=True,
+                       nee_share_secondary=secondary)
+    key = sampling.prng_key(11, dev)
+    frames = []
+    for graphs in (True, False):
+        engine.GRAPH_STEPS = graphs
+        replays = engine.GRAPH["replays"]
+        try:
+            out = renderer.render_frame(scene, cam.to(dev), cfg, key)
+        finally:
+            engine.GRAPH_STEPS = True
+        assert (engine.GRAPH["replays"] > replays) == graphs
+        frames.append((out["image"].cpu().numpy(), int(out["rays"])))
+    engine.clear_graphs()
+    np.testing.assert_array_equal(frames[0][0], frames[1][0])
+    assert frames[0][1] == frames[1][1]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shader", [C.SHADER_WHITTED, C.SHADER_PATHTRACER,
                                     C.SHADER_DEPTHMAP])
 def test_grid_and_escape_bvh_frames_on_the_card(shader):

@@ -163,25 +163,30 @@ def test_self_times_add_up_to_the_root_on_a_fake_clock(conference, tracer,
 
 
 def test_traversal_syncs_follow_the_refill_loops(conference, tracer):
-    """Each refill reads twice a loop, once more when its rays are all
-    resolved, and its dense backstop once plus once a loop: with no
-    backstop loop, SYNCS = 2 * refill loops + 2 * queries."""
-    before = dict(bt.LOOPS), metrics.SYNCS["traversal"]
+    """Each refill reads its unresolved count once before its first loop
+    and once after each loop, and its dense backstop reads nothing:
+    SYNCS = refill loops + queries."""
+    before = (dict(bt.LOOPS), dict(bt.REFILL), metrics.SYNCS["traversal"])
     metrics.enable()
     _frame(conference)
     metrics.disable()
     loops = {k: bt.LOOPS[k] - before[0][k] for k in bt.LOOPS}
+    refill = {k: bt.REFILL[k] - before[1][k] for k in bt.REFILL}
     spans = metrics.summary()["spans"]
     queries = sum(spans[q]["count"] for q in QUERIES)
     assert queries == 2 and loops["refill"] > 0 and loops["dense"] == 0
-    syncs = metrics.SYNCS["traversal"] - before[1]
-    assert syncs == 2 * loops["refill"] + 2 * queries
+    syncs = metrics.SYNCS["traversal"] - before[2]
+    assert syncs == loops["refill"] + queries
     assert spans["traversal.sync"]["count"] == syncs
+    assert refill["loops"] == loops["refill"]
+    assert 0 < refill["rays"] <= refill["lanes"] // bt.ST
     counters = metrics.summary()["counters"]
     assert counters["block_traversal.LOOPS"] is not bt.LOOPS
     assert counters["block_traversal.LOOPS"] == dict(bt.LOOPS)
-    assert set(counters) == {"block_traversal.LOOPS", "kernels.LAUNCHES",
-                             "engine.WALK", "metrics.SYNCS"}
+    assert set(counters) == {"block_traversal.LOOPS",
+                             "block_traversal.REFILL", "kernels.LAUNCHES",
+                             "engine.WALK", "engine.CHUNKS", "engine.GRAPH",
+                             "metrics.SYNCS"}
 
 
 def test_renderer_worker_thread_keeps_its_own_stack(conference, tracer):

@@ -213,3 +213,125 @@ def check_soup(mode):
                                     any_hit=True)
     np.testing.assert_array_equal(ids2.numpy() >= 0, occ_n.numpy() >= 0)
 
+
+
+def _refill_rays(kind):
+    """(tris, grid, o, d, t_max, prev_kind, prev_id) of one refill case:
+    the 32x32 camera rays of the 20k-triangle conference proxy, 4,096
+    cosine-weighted bounces off their hit points, or the random soup's
+    rays, which reach the dense backstop."""
+    if kind == "soup":
+        tris, grid, o, d = soup()[:4]
+        b = o.shape[0]
+        return (tris, grid, o, d, BIG, torch.zeros(b, dtype=torch.int32),
+                torch.full((b,), -1, dtype=torch.int32))
+    _, _, tt2, tg, o, d = conference20k()
+    o, d = _t(o), _t(d)
+    b = o.shape[0]
+    pk = torch.zeros(b, dtype=torch.int32)
+    pi = torch.full((b,), -1, dtype=torch.int32)
+    if kind == "primary":
+        return tt2, tg, o, d, BIG, pk, pi
+    from mobileraytracer_tpu_torch import sampling
+    t, ids = tbt.traverse(tg, tt2, o, d, BIG, pk, pi)
+    hit = torch.nonzero(ids >= 0).squeeze(1)
+    lane = hit.repeat(4)
+    n = (tg.tri_attr[ids[lane].long(), 9:12])
+    n = n / n.norm(dim=1, keepdim=True)
+    p = o[lane] + d[lane] * t[lane, None]
+    keys = sampling.fold_in(sampling.prng_key(5, torch.device("cpu")),
+                            torch.arange(lane.shape[0]))
+    db = sampling.cosine_sample_hemisphere(keys, n)
+    nb = lane.shape[0]
+    return (tt2, tg, p, db, BIG, torch.full((nb,), C.PRIM_TRIANGLE,
+                                            dtype=torch.int32),
+            ids[lane].to(torch.int32))
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["primary", "bounce", "soup"])
+def test_refill_batches_keep_every_hit(kind, any_hit, monkeypatch):
+    """The refill gathers every unresolved ray a loop (up to REFILL_CAP):
+    per ray the same t and id as with the batch held at the old size
+    (max(GROUP, min(2048, bp // ST // 4)) rays, here 8 to 64), never more
+    loops, and one device read a loop plus one a query."""
+    from mobileraytracer_tpu_torch.utils import metrics
+    tris, grid, o, d, tmax, pk, pi = _refill_rays(kind)
+    if any_hit:
+        tmax = torch.full((o.shape[0],), 1.0 if kind == "soup" else 300.0)
+
+    def run(cap):
+        monkeypatch.setattr(tbt, "REFILL_CAP", cap)
+        loops, syncs = tbt.LOOPS["refill"], metrics.SYNCS["traversal"]
+        dense = tbt.LOOPS["dense"]
+        t, ids = tbt.traverse(grid, tris, o, d, tmax, pk, pi,
+                              any_hit=any_hit)
+        return (t, ids, tbt.LOOPS["refill"] - loops,
+                metrics.SYNCS["traversal"] - syncs,
+                tbt.LOOPS["dense"] - dense)
+
+    cap = tbt.REFILL_CAP
+    bp = -(-o.shape[0] // (tbt.GROUP * tbt.ST)) * tbt.GROUP * tbt.ST
+    t_old, id_old, loops_old, _, _ = run(
+        max(tbt.GROUP, min(2048, bp // tbt.ST // 4)))
+    t_new, id_new, loops_new, syncs_new, dense_new = run(cap)
+    assert loops_new <= loops_old
+    if kind == "bounce":
+        assert loops_new < loops_old
+    assert syncs_new == loops_new + 1
+    if kind == "soup" and not any_hit:
+        assert dense_new > 0
+    if any_hit:
+        np.testing.assert_array_equal(id_new.numpy() >= 0,
+                                      id_old.numpy() >= 0)
+    else:
+        np.testing.assert_array_equal(t_new.numpy(), t_old.numpy())
+        _assert_ids(id_new, id_old, t_new, t_old, tris, o.numpy(),
+                    d.numpy())
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("kind", ["primary", "bounce", "soup"])
+def test_speculative_refill_matches_or_flags(kind, any_hit):
+    """Under `speculative` (a walk step's CUDA graph) the refill reads
+    nothing and runs the loops of SPECULATIVE_BATCHES: where it reports
+    every ray resolved, each ray's t and id are the read-driven refill's
+    bit for bit, with its loop and ray counts; the soup's closest hits,
+    which need the dense backstop, are reported unresolved."""
+    from mobileraytracer_tpu_torch.utils import metrics
+    tris, grid, o, d, tmax, pk, pi = _refill_rays(kind)
+    if any_hit:
+        tmax = torch.full((o.shape[0],), 1.0 if kind == "soup" else 300.0)
+    before = dict(tbt.LOOPS), dict(tbt.REFILL)
+    t_ref, id_ref = tbt.traverse(grid, tris, o, d, tmax, pk, pi,
+                                 any_hit=any_hit)
+    loops = tbt.LOOPS["refill"] - before[0]["refill"]
+    dense = tbt.LOOPS["dense"] - before[0]["dense"]
+    rays = tbt.REFILL["rays"] - before[1]["rays"]
+    stats = torch.zeros(4, dtype=torch.int64)
+    syncs = metrics.SYNCS["traversal"]
+    with tbt.speculative(stats):
+        t, ids = tbt.traverse(grid, tris, o, d, tmax, pk, pi,
+                              any_hit=any_hit)
+    assert metrics.SYNCS["traversal"] == syncs
+    assert tbt.LOOPS == before[0] | {"refill": before[0]["refill"] + loops,
+                                     "dense": before[0]["dense"] + dense}
+    unresolved, spec_loops, spec_rays, lanes = stats.tolist()
+    assert lanes > 0
+    if kind == "soup" and not any_hit:
+        assert dense > 0 and unresolved
+    if not unresolved:
+        assert dense == 0 and loops <= len(tbt.SPECULATIVE_BATCHES)
+        assert (spec_loops, spec_rays) == (loops, rays)
+        np.testing.assert_array_equal(t.numpy(), t_ref.numpy())
+        np.testing.assert_array_equal(ids.numpy(), id_ref.numpy())
+
+
+def test_speculative_refill_flags_rays_it_leaves(monkeypatch):
+    """Loops too small for the unresolved rays leave some: reported."""
+    tris, grid, o, d, tmax, pk, pi = _refill_rays("bounce")
+    monkeypatch.setattr(tbt, "SPECULATIVE_BATCHES", (tbt.GROUP,))
+    stats = torch.zeros(4, dtype=torch.int64)
+    with tbt.speculative(stats):
+        tbt.traverse(grid, tris, o, d, tmax, pk, pi)
+    assert stats[0] == 1 and stats[2] == tbt.GROUP
