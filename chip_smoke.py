@@ -180,6 +180,16 @@ raises and the script exits nonzero):
      bound, registers and shared memory at each g_n.  Each kernel's record
      gains `launches_block_bvh` and `launches_knobs`, and the resident
      record `by_g_n`.
+ 15. the candidate-window kernel (csrc/candidate_windows.cu) at the main
+     path's three shapes (window_shapes): the refill's call, 65,536 rays
+     each duplicated into a 16-ray subtile with cap and floor; banded
+     window 1 of phase 7's reversed shadow query; the tile-MT window of
+     the primaries, 2,048 tiles of 128 at 48/64.  At each, all four
+     outputs bitwise equal to block_traversal._candidates_plain (floats by
+     their bits), kernel and plain ms by CUDA events, its bound
+     (kernels.window_bound) and its registers, shared memory and blocks
+     per SM.  Its record gains its launches in the phase-4 frame, the
+     PathTracer frame and the gradient call.
 The script's seconds, the card's name and power limit and then the
 kernels' JSON record come just before the last line, {"ok": true,
 "device": {...}}.
@@ -674,7 +684,14 @@ def main():
         if kind == "resident":
             rec["by_g_n"] = by_g_n
 
-    say(14, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
+    # -- 15 -----------------------------------------------------------------
+    window = windows_phase(scene, (o, d, pk, pi), shadow7, card)
+    window.update(launches=launches["window"],
+                  launches_pathtracer=pt_launches["window"],
+                  launches_grad=grad_launches["window"])
+    records.append(window)
+
+    say(15, f"chip_smoke.py took {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -1161,6 +1178,7 @@ def loaders_phase(cam, key, cfg, img4, rays4, card):
     from mobileraytracer_tpu_torch.loaders import native
     from mobileraytracer_tpu_torch.loaders.obj import (load_obj_scene_ex,
                                                        save_obj_scene)
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
     from mobileraytracer_tpu_torch.ops import kernels as K
     from mobileraytracer_tpu_torch.renderer import STATE_STOPPED
 
@@ -1230,6 +1248,7 @@ def loaders_phase(cam, key, cfg, img4, rays4, card):
         mrt.Renderer.render = keep
         K.reset_launches()
         restore = recording(captured, tag)
+        windows = bt._candidates
         try:
             code = cli.main(argv + [str(tmp / "metrics.jsonl")])
             torch.cuda.synchronize()
@@ -1237,10 +1256,12 @@ def loaders_phase(cam, key, cfg, img4, rays4, card):
             restore()
             K.traverse_tilemt, K.traverse_banded = (K.tilemt_plain,
                                                     K.banded_plain)
+            bt._candidates = bt._candidates_plain
             plain_code = cli.main(argv + [str(tmp / "plain.jsonl")])
             torch.cuda.synchronize()
         finally:
             restore()
+            bt._candidates = windows
             mrt.Renderer.render = render
         line = (tmp / "metrics.jsonl").read_text().strip().splitlines()[-1]
         m = json.loads(line)
@@ -1262,7 +1283,7 @@ def loaders_phase(cam, key, cfg, img4, rays4, card):
             and m["total_rays"] >= size * size and same
             and np.isfinite(images[0]).all()
             and sum(a[3].shape[0] > 0 for a in captured.values())
-            == sum(launches.values())
+            == launches["tilemt"] + launches["banded"] == launches["window"]
             and all(launches[k] > 0 for k in ("tilemt", "banded"))):
         raise AssertionError("the command line's run failed its checks")
 
@@ -1514,14 +1535,17 @@ def gradients_phase(scene, cam, card):
     torch.utils.deterministic.fill_uninitialized_memory = False
     try:
         l1, g1 = vg()
-        saved = K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax
+        saved = (K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax,
+                 bt._candidates)
         K.traverse_tilemt, K.traverse_banded = K.tilemt_plain, K.banded_plain
         K.gumbel_argmax = lambda key, logits, k, table: (
             threefry.categorical(key, logits, k, table=table))
+        bt._candidates = bt._candidates_plain
         try:
             l2, g2 = vg()
         finally:
-            K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax = saved
+            (K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax,
+             bt._candidates) = saved
         same = torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k])
                                            for k in g1)
         say(10, f"vertex_grad under deterministic algorithms, kernels vs "
@@ -2435,6 +2459,104 @@ def block_bvh_phase(scene, cam, cfg, key, primaries, shadow, card):
                     f"{ki['blocks_per_sm']} blocks per SM [{card}]")
     say(14, f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
     return bvh_launches, knob_launches, err, by_g_n
+
+
+def window_shapes(scene, primaries, shadow):
+    """The window kernel's three shapes on the main path, as
+    {name: (o, d, cap, floor, st, top_s, top_m)}: the refill's call
+    (65,536 rays, each duplicated into a 16-ray subtile, capped at its
+    exact hit and floored at its window-1 cut: the primaries that window 1
+    leaves unresolved, repeated to fill the batch), banded window 1 of the
+    reversed shadow query (16-ray subtiles capped at their worst segment
+    end) and the tile-MT window of the primaries (128-ray tiles at 48/64,
+    capped at their worst t_init)."""
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    grid = scene.bvh
+    o, d, pk, pi = primaries
+    t, _ = bt.traverse_tilemt(grid, scene.triangles, o, d, C.RAY_LENGTH_MAX,
+                              pk, pi)
+    cut = bt._candidates(grid, o, d)[3].repeat_interleave(K.ST)
+    unres = torch.nonzero(cut < t)[:, 0]
+    if unres.numel() == 0:               # a scene that window 1 resolves
+        unres = torch.arange(t.numel(), device=t.device)
+    ridx = unres.repeat(-(-65536 // unres.numel()))[:65536]
+    lanes = ridx.repeat_interleave(K.ST)
+    shapes = {"refill": (o[lanes], d[lanes], t[ridx], cut[ridx], K.ST, None,
+                         None)}
+    so, sd, smax, spk, spi = shadow
+    rays, _ = bt._pack_rays(so, sd, bt._t_init(smax, so), spk, spi, K.TILE)
+    shapes["shadow window 1"] = (
+        rays[:, 0:3], rays[:, 3:6], rays[:, 6].reshape(-1, K.ST).amax(1),
+        None, K.ST, None, None)
+    rays, _ = bt._pack_rays(o, d, bt._t_init(C.RAY_LENGTH_MAX, o), pk, pi,
+                            K.TILE)
+    shapes["tile-MT primaries"] = (
+        rays[:, 0:3], rays[:, 3:6], rays[:, 6].reshape(-1, K.TILE).amax(1),
+        None, K.TILE, bt.TILE_TOP_S, bt.TILE_TOP_M)
+    return shapes
+
+
+def windows_phase(scene, primaries, shadow, card):
+    """Phase 15: the window kernel at the main path's three shapes
+    (window_shapes) against its plain version, bit for bit, timed by CUDA
+    events beside the plain version and its bound (kernels.window_bound),
+    with its registers, shared memory and occupancy.  Returns its JSON
+    record."""
+    from mobileraytracer_tpu_torch import constants as C
+    from mobileraytracer_tpu_torch.ops import _build
+    from mobileraytracer_tpu_torch.ops import block_traversal as bt
+    from mobileraytracer_tpu_torch.ops import kernels as K
+    t_phase = time.perf_counter()
+    grid = scene.bvh
+    shapes = {}
+    for what, (o, d, cap, floor, st, top_s, top_m) in window_shapes(
+            scene, primaries, shadow).items():
+        args = (grid, o, d, cap, floor, st, top_s, top_m)
+        got = bt._candidates(*args)
+        want = bt._candidates_plain(*args)
+        torch.cuda.synchronize()
+        bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+        same = all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
+        k_ms = cuda_ms(lambda: bt._candidates(*args), 20)
+        p_ms = cuda_ms(lambda: bt._candidates_plain(*args), 3)
+        nt, m = got[0].shape
+        s = min(top_s or grid.top_s, grid.num_supers)
+        bound = K.window_bound(o.shape[0], nt, grid.num_supers, s, grid.bps,
+                               m, (cap is not None) + (floor is not None))
+        ki = _build.kernel_info("window", depth=max(s, m))
+        finite = int((got[2] < C.RAY_LENGTH_MAX).sum())
+        say(15, f"window kernel, {what}: {nt} bundles of {st} rays, top_s "
+                f"{s}, top_m {m}, cap {cap is not None}, floor "
+                f"{floor is not None}; {finite / nt:.2f} finite entries a "
+                f"window; bitwise equal to plain: {same}; kernel {k_ms:.4f} "
+                f"ms, plain PyTorch {p_ms:.4f} ms, bound {bound['ms']:.4f} "
+                f"ms ({bound['by']}: {bound['ops']} f32 ops, "
+                f"{bound['bytes']} bytes), share {bound['ms'] / k_ms:.4f}, "
+                f"at the unfused rate {bound['unfused_ms'] / k_ms:.4f}; "
+                f"{ki['regs']} registers, {ki['local_bytes']} spilled "
+                f"bytes, {ki['static_smem'] + ki['dynamic_smem']} B of "
+                f"shared memory and {ki['threads']} threads per block, "
+                f"{ki['blocks_per_sm']} blocks per SM; no PyTorch call "
+                f"computes a stable two-level candidate window [{card}]")
+        if not same:
+            raise AssertionError(f"window kernel != plain version: {what}")
+        shapes[what] = dict(bundles=nt, st=st, top_s=s, top_m=m, ms=k_ms,
+                            plain_ms=p_ms, bound_ms=bound["ms"],
+                            bound_by="operations" if bound["by"] == "compute"
+                            else "bytes", share=bound["ms"] / k_ms,
+                            share_unfused=bound["unfused_ms"] / k_ms,
+                            regs=ki["regs"], spilled=ki["local_bytes"],
+                            smem=ki["static_smem"] + ki["dynamic_smem"],
+                            threads=ki["threads"],
+                            blocks_per_sm=ki["blocks_per_sm"])
+    say(15, f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(name="candidate_windows", route="cuda",
+                source="mobileraytracer_tpu_torch/csrc/candidate_windows.cu",
+                replaces="none: the jnp chain of "
+                         "mobileraytracer_tpu/ops/pallas_bvh.py:333, fused "
+                         "by XLA", library_ms=None, shapes=shapes, card=card)
 
 
 def mrt_primaries(scene, cam, cfg):

@@ -1,5 +1,5 @@
 """Builds and loads the CUDA kernels (csrc/*.cu): the four traversal
-kernels and the Gumbel-max draw.
+kernels, the Gumbel-max draw and the candidate windows.
 
 `nvcc` compiles the sources into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so a build takes
@@ -32,10 +32,10 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNELS = ("banded", "tilemt", "tilebw", "resident", "gumbel")
+KERNELS = ("banded", "tilemt", "tilebw", "resident", "gumbel", "window")
 # Launcher argument types: the device pointers, the ints, then any host
-# pointer and the stream; each kernel's mrt_<name>_info takes an int[6]
-# (resident's also its bands per program).
+# pointer or float and the stream; each kernel's mrt_<name>_info takes an
+# int[6] (resident's also its bands per program, window's its depth).
 _FUNCS = {
     "mrt_traverse_banded": [_P] * 5 + [_I] * 3 + [_P],
     "mrt_traverse_tilemt": [_P] * 6 + [_I] * 3 + [_P],
@@ -43,8 +43,10 @@ _FUNCS = {
                            + [ctypes.POINTER(ctypes.c_float), _P],
     "mrt_traverse_resident": [_P] * 5 + [_I] * 4 + [_P],
     "mrt_gumbel_argmax": [_P] * 4 + [_I] * 2 + [_P],
+    "mrt_candidate_windows": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
     **{f"mrt_{k}_info": [ctypes.POINTER(_I)] for k in KERNELS},
     "mrt_resident_info": [ctypes.POINTER(_I), _I],
+    "mrt_window_info": [ctypes.POINTER(_I), _I],
 }
 _lib = None
 BUILD_INFO = {"seconds": None, "built": False, "path": None, "log": ""}
@@ -132,15 +134,15 @@ INFO_KEYS = ("regs", "static_smem", "dynamic_smem", "local_bytes",
              "threads", "blocks_per_sm")
 
 
-def kernel_info(name: str, g_n: int = 8) -> dict:
+def kernel_info(name: str, g_n: int = 8, depth: int = 64) -> dict:
     """Launch facts of kernel `name` (one of KERNELS) on the current
     device, from cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor: registers per thread,
     static and dynamic shared bytes, spilled bytes per thread, threads per
     block and resident blocks per SM.  `g_n` is the resident kernel's
-    bands per program."""
+    bands per program, `depth` the window kernel's max(top_s, top_m)."""
     info = (ctypes.c_int * len(INFO_KEYS))()
-    extra = (g_n,) if name == "resident" else ()
+    extra = {"resident": (g_n,), "window": (depth,)}.get(name, ())
     err = getattr(load(), f"mrt_{name}_info")(info, *extra)
     if err != 0:
         raise RuntimeError(f"{name} kernel info: {error_string(err)}")

@@ -6,10 +6,11 @@ The scene's triangles are cut by the SAH build (ops/bvh.py) into
 (rows 0-2 point_a, 3-5 ab, 6-8 ac, 9 valid flag, 10 global slot id),
 grouped 16 blocks to a "super".  A traversal then runs in three stages:
 
-  1. `_candidates` (plain torch): per bundle of rays, one window of the
-     nearest candidate blocks in conservative-entry order, from interval
-     slab bounds over the bundle (supers first, then their blocks), plus
-     the window's cutoff `cut`;
+  1. `_candidates`: per bundle of rays, one window of the nearest
+     candidate blocks in conservative-entry order, from interval slab
+     bounds over the bundle (supers first, then their blocks), plus the
+     window's cutoff `cut`: the window kernel (`kernels.candidate_windows`)
+     on the card, its plain version `_candidates_plain` on the CPU;
   2. a hand-written CUDA kernel walks the window (ops/kernels.py):
      `traverse_tilemt` for coherent 128-ray tiles (the primary pass),
      `traverse_banded` for 8 bands of 16 rays (the walker tail, every
@@ -298,7 +299,20 @@ def _candidates(grid: BlockGrid, o, d, cap=None, floor=None, st=ST,
     ascending conservative-entry order (RAY_LENGTH_MAX on padding
     entries) and the window cutoff.  `cap` (each bundle's worst t_init)
     drops blocks at or beyond it; `floor` (the previous window's cut)
-    drops blocks already visited."""
+    drops blocks already visited.  CUDA tensors go to the window kernel,
+    CPU tensors to `_candidates_plain`; the two agree bit for bit."""
+    if o.device.type != "cuda":
+        return _candidates_plain(grid, o, d, cap, floor, st, top_s, top_m)
+    s = min(top_s if top_s is not None else grid.top_s, grid.num_supers)
+    m = min(top_m if top_m is not None else grid.top_m, s * grid.bps)
+    return kernels.candidate_windows(
+        grid.super_lo, grid.super_hi, grid.blocks_packed, grid.tb.shape[0],
+        o, d, cap, floor, st, s, m)
+
+
+def _candidates_plain(grid: BlockGrid, o, d, cap=None, floor=None, st=ST,
+                      top_s=None, top_m=None):
+    """`_candidates` in plain PyTorch, the window kernel's reference."""
     b = o.shape[0]
     nt = b // st
     small = torch.abs(d) < 1e-30

@@ -11,12 +11,16 @@ the resident-table one (`_make_resident_kernel` /
 `_traverse_resident_padded`).  The fifth, `gumbel_argmax`, replaces no
 Pallas kernel: it is the Gumbel-max draw of `jax.random.categorical`
 (`threefry.categorical`, its plain version), which XLA lowered to
-elementwise ops.  The CUDA kernels live in `../csrc/` and are built at
-first use by `_build.py`.
+elementwise ops.  The sixth, `candidate_windows`, replaces no Pallas
+kernel either: it is the `jnp` chain of `pallas_bvh.py::_candidates`, which
+XLA fused; its plain version is `block_traversal._candidates_plain`.  The
+CUDA kernels live in `../csrc/` and are built at first use by `_build.py`.
 
 A wrapper given CPU tensors runs the kernel's plain version; given CUDA
 tensors it launches the kernel or raises.  There is no fallback from one
-to the other.  `LAUNCHES` counts kernel launches (never plain runs).
+to the other.  `candidate_windows` takes CUDA tensors alone: its caller,
+`block_traversal._candidates`, sends CPU tensors to the plain version.
+`LAUNCHES` counts kernel launches (never plain runs).
 
 Shared inputs of the traversal kernels:
   tb          (NB, 16, 128) f32  triangle blocks (rows 0-8 a/ab/ac, 9 valid,
@@ -56,7 +60,7 @@ TREL = 3e-4
 
 LAUNCHES = counters("kernels.LAUNCHES", {"banded": 0, "tilemt": 0,
                                          "tilebw": 0, "resident": 0,
-                                         "gumbel": 0})
+                                         "gumbel": 0, "window": 0})
 
 
 def reset_launches() -> None:
@@ -592,6 +596,34 @@ def gumbel_bound_ms(k: int, e: int) -> float:
     return k * e * GUMBEL_INT_OPS / PEAK_INT32 * 1e3
 
 
+# The window kernel's work: 12 f32 operations an axis a box (two
+# differences and four products a face; the minima, maxima and the
+# selections' compares are not counted), and 3 divisions a ray for 1 / d
+# (csrc/candidate_windows.cu).
+WINDOW_BOX_OPS = 36
+WINDOW_RAY_OPS = 3
+
+
+def window_bound(b: int, nt: int, k1: int, s: int, bps: int, m: int,
+                 bounded: int) -> dict:
+    """The least time one H100 could take for one window call: b rays in
+    nt bundles over k1 supers, s of them chosen, bps blocks a super, m
+    candidates a window, and `bounded` of cap and floor given.  Every super
+    and every block of the chosen supers gets its slab test; the bytes are
+    the rays' origins and directions, the super table, the chosen supers'
+    packed rows, each bundle's cap and floor, and the outputs, each once.
+    Returns the dict of `traversal_bound` (tests: the boxes tested)."""
+    boxes = nt * (k1 + s * bps)
+    ops = boxes * WINDOW_BOX_OPS + b * WINDOW_RAY_OPS
+    nbytes = (b * 24 + k1 * 6 * 4 + min(k1, nt * s) * 8 * bps * 4
+              + nt * 4 * bounded + nt * (m * 12 + 4))
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_HBM
+    return {"ms": max(t_ops, t_bytes) * 1e3,
+            "by": "compute" if t_ops >= t_bytes else "bytes",
+            "tests": boxes, "ops": ops, "bytes": nbytes,
+            "unfused_ms": ops / PEAK_FP32_UNFUSED * 1e3}
+
+
 def visited_blocks(cand_gid, rounds) -> int:
     """Distinct block ids among the first rounds[i] entries of each list
     cand_gid[i] (rounds per list, clamped to the list length m)."""
@@ -799,3 +831,79 @@ def gumbel_argmax(key, logits, k: int, table):
                 _ptr(table), _ptr(packed), ctypes.c_int(k), ctypes.c_int(e))
     # The low word holds 0xFFFFFFFF - column (csrc/gumbel_argmax.cu).
     return 0xFFFFFFFF - (packed & 0xFFFFFFFF)
+
+
+# The window kernel keeps each selection as a sorted list of at most 4 keys
+# a lane (csrc/candidate_windows.cu).
+WINDOW_DEPTH = 128
+
+
+@span("kernels.candidate_windows")
+def candidate_windows(super_lo, super_hi, blocks_packed, nb: int, o, d,
+                      cap, floor, st: int, s: int, m: int):
+    """Window kernel (plain version: block_traversal._candidates_plain,
+    whose contract it keeps): one window of the m nearest candidate blocks
+    per st-ray bundle, from the s nearest supers.  super_lo/super_hi are
+    (3, K1), blocks_packed (K1, 8 BPS) and nb = K1 BPS blocks; o and d are
+    (B, 3) rows with unit column stride (B = nt st; any row stride); cap
+    and floor are (nt,) or None.  Returns (cand_gid, cand_first,
+    cand_entry, cut): (nt, m) int32, int32 and f32, and (nt,) f32.  CUDA
+    tensors only."""
+    dev = o.device
+    f32 = torch.float32
+    named = [("super_lo", super_lo, f32), ("super_hi", super_hi, f32),
+             ("blocks_packed", blocks_packed, f32)]
+    named += [(n, x, f32) for n, x in (("cap", cap), ("floor", floor))
+              if x is not None]
+    _check_placed(dev, named, on="o")
+    for name, x in (("o", o), ("d", d)):
+        if x.device != dev or x.dtype != f32 or x.dim() != 2 \
+                or x.shape[1] != 3 or x.stride(1) != 1:
+            raise ValueError(f"{name} must be (B, 3) float32 on {dev} with "
+                             f"unit column stride, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}, strides "
+                             f"{x.stride()}")
+    b = o.shape[0]
+    k1 = super_lo.shape[-1]
+    bps = blocks_packed.shape[-1] // 8
+    if d.shape[0] != b or st < 1 or b % st:
+        raise ValueError(f"o and d must hold the same whole number of "
+                         f"{st}-ray bundles, got {tuple(o.shape)} / "
+                         f"{tuple(d.shape)}")
+    nt = b // st
+    if tuple(super_lo.shape) != (3, k1) or tuple(super_hi.shape) != (3, k1) \
+            or tuple(blocks_packed.shape) != (k1, 8 * bps) or k1 < 1 \
+            or bps < 1 or nb != k1 * bps:
+        raise ValueError(f"want super_lo/super_hi (3, K1), blocks_packed "
+                         f"(K1, 8 BPS) and nb = K1 BPS, got "
+                         f"{tuple(super_lo.shape)}, {tuple(super_hi.shape)},"
+                         f" {tuple(blocks_packed.shape)}, nb={nb}")
+    if not (1 <= s <= min(k1, WINDOW_DEPTH)
+            and 1 <= m <= min(s * bps, WINDOW_DEPTH)):
+        raise ValueError(f"the window kernel takes 1 <= top_s <= min(K1, "
+                         f"{WINDOW_DEPTH}) and 1 <= top_m <= min(top_s BPS, "
+                         f"{WINDOW_DEPTH}) (its sorted lists hold 4 keys a "
+                         f"lane), got top_s={s}, top_m={m} with K1={k1}, "
+                         f"BPS={bps}")
+    for name, x in (("cap", cap), ("floor", floor)):
+        if x is not None and tuple(x.shape) != (nt,):
+            raise ValueError(f"{name} must be ({nt},), got {tuple(x.shape)}")
+    if dev.type != "cuda":
+        raise ValueError(f"the window kernel takes CUDA tensors, got {dev} "
+                         f"(block_traversal._candidates takes the plain "
+                         f"version for CPU tensors)")
+    cand_gid = torch.empty((nt, m), dtype=torch.int32, device=dev)
+    cand_first = torch.empty((nt, m), dtype=torch.int32, device=dev)
+    cand_entry = torch.empty((nt, m), dtype=f32, device=dev)
+    cut = torch.empty(nt, dtype=f32, device=dev)
+    if nt:
+        opt = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+        _launch("mrt_candidate_windows", "window", dev, _ptr(o), _ptr(d),
+                _ptr(super_lo), _ptr(super_hi), _ptr(blocks_packed),
+                opt(cap), opt(floor), _ptr(cand_gid), _ptr(cand_first),
+                _ptr(cand_entry), _ptr(cut), ctypes.c_int(nt),
+                ctypes.c_int(st), ctypes.c_int(o.stride(0)),
+                ctypes.c_int(d.stride(0)), ctypes.c_int(k1),
+                ctypes.c_int(bps), ctypes.c_int(s), ctypes.c_int(m),
+                ctypes.c_int(nb), ctypes.c_float(_BIG))
+    return cand_gid, cand_first, cand_entry, cut

@@ -280,8 +280,11 @@ def _scatter_back(state: WalkState, sub: WalkState, lanes, keep) -> None:
 # per scene (its tensors' addresses and shapes), configuration and chunk
 # size, with the traversals' refills speculative
 # (block_traversal.speculative); a step that leaves a ray unresolved there
-# runs again, op by op, from the graph's inputs.  False: every step op by
-# op.
+# runs again, op by op, from the graph's inputs.  Only steps over the
+# block traversal (ACC_BVH on a block_traversal.BlockGrid) are captured:
+# the other queries are not made for it (the grid's DDA and the
+# escape-index walk read the device, the naive scan copies its t_max from
+# the host).  False: every step op by op.
 GRAPH_STEPS = True
 GRAPHS_KEPT = 2
 _graphs: "collections.OrderedDict" = collections.OrderedDict()
@@ -359,7 +362,9 @@ class _StepGraph:
 def _step_graph(step, scene, config, state, keys, idx):
     """The cached graph of this chunk step, captured now if it is new;
     None where steps run op by op."""
-    if not GRAPH_STEPS or keys.device.type != "cuda":
+    if not GRAPH_STEPS or keys.device.type != "cuda" \
+            or config.accelerator != C.ACC_BVH \
+            or not isinstance(scene.bvh, block_traversal.BlockGrid):
         return None
     tensors = list(_tensors(scene))
     if any(t.requires_grad for t in tensors):

@@ -1,10 +1,10 @@
-"""The four CUDA traversal kernels and the Gumbel-max draw kernel against
-their plain PyTorch versions, on the card, and frames of the PathTracer
-and of the grid and escape-index BVH on the card.  Imports neither jax
-nor the JAX package (nor does test_torch_kernel_design, whose hand-made
-blocks it uses), so it runs on a machine with PyTorch for CUDA alone (the
-last test starts two ranks of tests/torch_mesh_worker.py, which imports
-no jax either):
+"""The four CUDA traversal kernels, the Gumbel-max draw kernel and the
+candidate-window kernel against their plain PyTorch versions, on the
+card, and frames of the PathTracer and of the grid and escape-index BVH on
+the card.  Imports neither jax nor the JAX package (nor does
+test_torch_kernel_design, whose hand-made blocks it uses), so it runs on
+a machine with PyTorch for CUDA alone (the last test starts two ranks of
+tests/torch_mesh_worker.py, which imports no jax either):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -s
 
@@ -160,6 +160,9 @@ def test_cuda_tensors_never_take_the_plain_version(cuda_scene):
     t, ids = bt.traverse_tilemt(scene.bvh, scene.triangles, o, d,
                                 C.RAY_LENGTH_MAX, pk, pi)
     assert K.LAUNCHES["tilemt"] == 1
+    # One window a traversal kernel launch: tile-MT's, and each refill
+    # loop's before its banded launch.
+    assert K.LAUNCHES["window"] == 1 + K.LAUNCHES["banded"]
     assert np.isfinite(t.cpu().numpy()).all()
     assert (ids >= 0).float().mean() > 0.9
     t2, ids2 = bt.traverse_tile(scene.bvh, scene.triangles, o, d,
@@ -519,14 +522,18 @@ def _gumbel_plain(key, logits, k, table):
 
 
 def _plain_kernels():
-    """Puts the plain versions in the tile-MT, banded and Gumbel-max
-    wrappers' place; returns the function that puts the wrappers back."""
-    saved = K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax
+    """Puts the plain versions in the tile-MT, banded, Gumbel-max and
+    window kernels' place; returns the function that puts the wrappers
+    back."""
+    saved = (K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax,
+             bt._candidates)
     K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax = (
         K.tilemt_plain, K.banded_plain, _gumbel_plain)
+    bt._candidates = bt._candidates_plain
 
     def restore():
-        K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax = saved
+        (K.traverse_tilemt, K.traverse_banded, K.gumbel_argmax,
+         bt._candidates) = saved
     return restore
 
 
@@ -625,6 +632,7 @@ def test_vertex_grad_on_the_card_equals_plain_versions(cuda_scene):
     finally:
         torch.use_deterministic_algorithms(False)
     assert launches["banded"] > 0 and launches["tilemt"] == 0, launches
+    assert launches["window"] == launches["banded"], launches
     assert launches["gumbel"] == 2, launches
     assert torch.equal(loss, loss_p)
     for k in g:
@@ -660,6 +668,7 @@ def test_train_step_on_the_card_equals_plain_versions(cuda_scene):
     finally:
         torch.use_deterministic_algorithms(False)
     assert launches["banded"] > 0 and launches["tilemt"] == 0, launches
+    assert launches["window"] == launches["banded"], launches
     assert torch.equal(loss, loss_p)
     for k in g:
         assert torch.isfinite(g[k]).all()
@@ -712,3 +721,183 @@ def test_chunked_frame_on_the_card_equals_fused(cuda_scene):
         K.LAUNCHES
     for k in ("bitmap", "image", "rays"):
         assert torch.equal(out[k], one[k]), k
+
+
+# ---------------------------------------------------------------------------
+# The window kernel (csrc/candidate_windows.cu) against
+# block_traversal._candidates_plain on the card: all four outputs bit for
+# bit (floats by their bits, so a zero's sign counts), and frames whose
+# windows come from either.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def conference_full():
+    """The 331,179-triangle conference proxy on the card (241 supers of 16
+    blocks), its camera and its 512x512 primary rays."""
+    dev = _need_cuda()
+    scene, cam, _ = bench_scenes.conference_proxy()
+    scene = bt.build(scene, device=dev)
+    u, v, _, _ = renderer._pixel_order(RenderConfig(width=512, height=512),
+                                       dev)
+    zero = torch.zeros_like(u)
+    o, d = cameras.generate_rays(cam.to(dev), u, v, zero, zero)
+    return scene, cam.to(dev), o, d
+
+
+WINDOW_CASES = ["st16", "st16-cap", "st128-48-64", "sel_st32", "sel_st64",
+                "refill", "cap-floor", "small-scene", "all-inf", "zero-dirs",
+                "on-face"]
+
+
+def _on_face_rays(grid, n_bundles, rng):
+    """Bundles of 16 rays that share an origin on a face of a random
+    non-empty block (axis and face by bundle), the other two coordinates
+    inside it; their directions point into the block on that axis, or
+    (every fourth bundle) both ways, so the slab products meet exact zeros
+    of both signs."""
+    pk = grid.blocks_packed.cpu().numpy()
+    bps = grid.bps
+    lo = np.stack([pk[:, a * bps:(a + 1) * bps].reshape(-1)
+                   for a in range(3)], 1)
+    hi = np.stack([pk[:, (3 + a) * bps:(4 + a) * bps].reshape(-1)
+                   for a in range(3)], 1)
+    live = np.nonzero(pk[:, 7 * bps:8 * bps].reshape(-1) > 0)[0]
+    blocks = rng.choice(live, n_bundles)
+    o = rng.uniform(lo[blocks], hi[blocks]).astype(np.float32)
+    d = rng.normal(size=(n_bundles, 16, 3)).astype(np.float32)
+    for i, g in enumerate(blocks):
+        a, on_hi = i % 3, (i // 3) % 2 == 0
+        o[i, a] = hi[g, a] if on_hi else lo[g, a]
+        if i % 4 != 3:
+            d[i, :, a] = np.abs(d[i, :, a]) * (-1.0 if on_hi else 1.0)
+    o = np.repeat(o, 16, 0)
+    return o, d.reshape(-1, 3)
+
+
+def _window_case(case, conference_full):
+    """(grid, o, d, cap, floor, bundle width, knobs) of one window shape."""
+    scene, _, o, d = conference_full
+    grid, dev = scene.bvh, o.device
+    rng = np.random.default_rng(WINDOW_CASES.index(case))
+    ext = float((grid.super_hi.max(1).values
+                 - grid.super_lo.min(1).values).norm())
+    cap = floor = None
+    st, top = K.ST, {}
+    if case == "st128-48-64":
+        st, top = K.TILE, dict(top_s=bt.TILE_TOP_S, top_m=bt.TILE_TOP_M)
+    elif case in ("sel_st32", "sel_st64"):
+        st = int(case[-2:])
+    elif case == "refill":
+        # The refill's call: 65,536 rays, each duplicated into a subtile.
+        o, d = (x[:65536].repeat_interleave(K.ST, 0) for x in (o, d))
+    elif case == "small-scene":
+        ts, _ = scenes.load_builtin(C.SCENE_CORNELL, 1.0)
+        grid = bt.build(ts, device=dev).bvh
+        top = dict(top_s=bt.DEFAULT_TOP_S, top_m=bt.DEFAULT_TOP_M)
+    if case in ("small-scene", "zero-dirs", "on-face"):
+        lo = grid.super_lo.min(1).values.cpu().numpy()
+        hi = grid.super_hi.max(1).values.cpu().numpy()
+        if case == "on-face":
+            o, d = _on_face_rays(grid, 4096, rng)
+        else:
+            o = rng.uniform(lo, hi, (65536, 3)).astype(np.float32)
+            d = rng.normal(size=(65536, 3)).astype(np.float32)
+            d[::3, 0] = 0.0
+            d[1::4, 1] = -0.0
+            d[2::5, 2] = 0.0
+        o, d = (torch.from_numpy(x).to(dev) for x in (o, d))
+    nt = o.shape[0] // st
+    per = lambda lo_, hi_: torch.from_numpy(
+        rng.uniform(lo_, hi_, nt).astype(np.float32)).to(dev)
+    if case != "st16" and case != "small-scene":
+        cap = per(0.05 * ext, ext)
+    if case in ("refill", "cap-floor"):
+        floor = per(0.0, 0.3 * ext)
+    if case == "all-inf":
+        cap = torch.full((nt,), -float("inf"), device=dev)
+    return grid, o, d, cap, floor, st, top
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_kernel_equals_plain(conference_full, case):
+    grid, o, d, cap, floor, st, top = _window_case(case, conference_full)
+    before = K.LAUNCHES["window"]
+    got = bt._candidates(grid, o, d, cap=cap, floor=floor, st=st, **top)
+    assert K.LAUNCHES["window"] == before + 1
+    want = bt._candidates_plain(grid, o, d, cap, floor, st, **top)
+    for name, g, w in zip(("cand_gid", "cand_first", "cand_entry", "cut"),
+                          got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        bad = (_bits(g) != _bits(w)).nonzero()
+        assert bad.shape[0] == 0, (name, bad[:4].tolist(),
+                                   g[tuple(bad[0])].item(),
+                                   w[tuple(bad[0])].item())
+    ce = want[2]
+    if case == "on-face":
+        zeros = ce[ce == 0.0]
+        assert zeros.numel() > 0 and torch.signbit(zeros).any()
+    if case == "all-inf":
+        assert (ce == C.RAY_LENGTH_MAX).all()
+    else:
+        assert (ce < C.RAY_LENGTH_MAX).any()
+
+
+def _plain_windows_on_the_cpu(grid):
+    """_candidates for `grid`'s queries through the plain version on the
+    CPU, its outputs sent back to the card."""
+    cpu_grid = grid.to("cpu")
+
+    def windows(g, o, d, cap=None, floor=None, st=K.ST, top_s=None,
+                top_m=None):
+        assert g is grid
+        c = lambda x: None if x is None else x.cpu()
+        out = bt._candidates_plain(cpu_grid, o.cpu(), d.cpu(), c(cap),
+                                   c(floor), st, top_s, top_m)
+        return tuple(x.to(o.device) for x in out)
+    return windows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shader", ["whitted", "pathtracer"])
+def test_frames_with_kernel_windows_equal_plain_windows(conference_full,
+                                                        monkeypatch, shader):
+    """The main path's 512x512 Whitted frame and a 256x256 PathTracer
+    sample (its chunk steps as CUDA graphs) with the window kernel equal,
+    bit for bit, the frames whose windows the plain version computes on
+    the CPU (PathTracer steps then op by op); one window a traversal
+    kernel launch."""
+    from mobileraytracer_tpu_torch.shaders import engine
+    scene, cam, o, _ = conference_full
+    dev = o.device
+    if shader == "whitted":
+        cfg = RenderConfig(width=512, height=512, spp=1,
+                           shader=C.SHADER_WHITTED, accelerator=C.ACC_BVH,
+                           nee_share=128, nee_share_secondary=True)
+    else:
+        cfg = RenderConfig(width=256, height=256, spp=1,
+                           shader=C.SHADER_PATHTRACER,
+                           accelerator=C.ACC_BVH, nee_share=128,
+                           nee_reverse=True, nee_share_secondary=True)
+    key = sampling.prng_key(7, dev)
+    K.reset_launches()
+    out = renderer.render_frame(scene, cam, cfg, key)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    walks = sum(launches[k] for k in ("banded", "tilemt", "tilebw",
+                                      "resident"))
+    assert launches["window"] == walks > 0, launches
+    monkeypatch.setattr(bt, "_candidates",
+                        _plain_windows_on_the_cpu(scene.bvh))
+    monkeypatch.setattr(engine, "GRAPH_STEPS", False)
+    K.reset_launches()
+    ref = renderer.render_frame(scene, cam, cfg, key)
+    assert K.LAUNCHES["window"] == 0
+    engine.clear_graphs()
+    assert int(out["rays"]) == int(ref["rays"]) > 0
+    assert torch.equal(out["image"], ref["image"])
+    assert torch.equal(out["bitmap"], ref["bitmap"])

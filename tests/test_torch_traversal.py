@@ -85,7 +85,7 @@ def test_build_blocks_equal_conference_full():
     _assert_grid_equal(jt2, jg, tt2, tg)
 
 
-@pytest.mark.parametrize("st", [16, 128])
+@pytest.mark.parametrize("st", [16, 128, 32, 64])
 @pytest.mark.parametrize("bounds", ["none", "cap", "floor", "cap+floor"])
 def test_candidates_equal(st, bounds):
     _, jg, _, tg, o, d = conference20k()
@@ -104,6 +104,55 @@ def test_candidates_equal(st, bounds):
                           jout, tout):
         assert t.dtype == torch.from_numpy(np.asarray(j)).dtype, name
         np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+
+
+def _window_edge_case(case):
+    """(JAX grid, port grid, o, d, bundle width, cap, knobs) of an edge
+    case of the windows: cornell's one super of one block under the
+    default window depths (K1 < top_s, s BPS < top_m); every entry +inf
+    (cap -inf), so each window is its padding in index order; and rays
+    with zero direction components of both signs."""
+    rng = np.random.default_rng(21)
+    if case == "cornell":
+        from mobileraytracer_tpu import scenes as jsc
+        from mobileraytracer_tpu_torch import scenes as tsc
+        _, jg = jpb.build_blocks(jsc.load_builtin(C.SCENE_CORNELL,
+                                                  1.0)[0].triangles)
+        _, tg = tbt.build_blocks(tsc.load_builtin(C.SCENE_CORNELL,
+                                                  1.0)[0].triangles)
+    else:
+        _, jg, _, tg, o, d = conference20k()
+    lo = tg.super_lo.min(1).values.numpy()
+    hi = tg.super_hi.max(1).values.numpy()
+    o = rng.uniform(lo, hi, (256, 3)).astype(np.float32)
+    d = rng.normal(size=(256, 3)).astype(np.float32)
+    if case == "zero_dirs":
+        d[::3, 0] = 0.0
+        d[1::4, 1] = -0.0
+        d[2::5, 2] = 0.0
+    nt = 256 // 16
+    cap = np.full(nt, -np.inf, np.float32) if case == "all_inf" else None
+    top = dict(top_s=32, top_m=48) if case == "cornell" else {}
+    return jg, tg, o, d, 16, cap, top
+
+
+@pytest.mark.parametrize("case", ["cornell", "all_inf", "zero_dirs"])
+def test_candidates_equal_edge_cases(case):
+    jg, tg, o, d, st, cap, top = _window_edge_case(case)
+    kw = {} if cap is None else {"cap": cap}
+    jout = jpb._candidates(jg, jnp.asarray(o), jnp.asarray(d), st=st,
+                           **{k: jnp.asarray(v) for k, v in kw.items()},
+                           **top)
+    tout = tbt._candidates(tg, _t(o), _t(d), st=st,
+                           **{k: _t(v) for k, v in kw.items()}, **top)
+    for name, j, t in zip(("cand_gid", "cand_first", "cand_entry", "cut"),
+                          jout, tout):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+    if case == "all_inf":
+        assert (tout[2] == BIG).all() and (tout[3] == BIG).all()
+        np.testing.assert_array_equal(
+            tout[0].numpy(), np.broadcast_to(np.arange(tout[0].shape[1]),
+                                             tout[0].shape))
 
 
 def _kernel_inputs(st, any_hit):
@@ -213,7 +262,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     for a, b in zip(out4, ref4):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert K.LAUNCHES == {"banded": 0, "tilemt": 0, "tilebw": 0,
-                          "resident": 0, "gumbel": 0}
+                          "resident": 0, "gumbel": 0, "window": 0}
     with pytest.raises(ValueError):
         K.traverse_banded(tg.tb, _t(cg), _t(ce), _t(rays[:100]), m, False)
     with pytest.raises(TypeError):
