@@ -28,11 +28,11 @@ Every function keeps the JAX package's name, shapes and tie rules:
 `lax.top_k` becomes a stable sort (lower index first on ties), `argsort`s
 are stable, and `mode="drop"` scatters write to a spare slot that is then
 cut off.  The JAX `while_loop`s are Python loops; each test of their
-condition waits for the device, except in the refill under `speculative`.
+condition waits for the device, except in the refill inside a
+`Speculation`.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Tuple
 
@@ -402,26 +402,70 @@ def _refill_batch(n: int) -> int:
     return min(REFILL_CAP, max(GROUP, 1 << max(n - 1, 0).bit_length()))
 
 
-# While `speculative(stats)` is open (a CUDA graph of a walk step being
-# captured, shaders/engine.py), the refill reads nothing from the device:
-# it runs one loop of each of these sizes (rays gathered, capped at the
-# query's own power of two) whatever the count, and adds to `stats`
-# (int64 [unresolved, loops, rays, lanes]) whether a ray was left
-# unresolved, the loops that gathered a ray, their rays and the lanes
-# launched.  A step that leaves a ray unresolved is run again without it.
+def _count_refill(loops, rays, lanes) -> None:
+    """Counts refill loops, the unresolved rays they gathered and the
+    banded lanes they launched: the one place LOOPS["refill"] and REFILL
+    advance."""
+    LOOPS["refill"] += loops
+    REFILL["loops"] += loops
+    REFILL["rays"] += rays
+    REFILL["lanes"] += lanes
+
+
+# The loops of a speculative refill, by the rays each gathers (capped at
+# the query's own power of two).
 SPECULATIVE_BATCHES = (REFILL_CAP, 2048)
 _speculation = None
 
 
-@contextlib.contextmanager
-def speculative(stats: torch.Tensor):
-    """Runs the refills inside the block speculatively into `stats`."""
-    global _speculation
-    prev, _speculation = _speculation, stats
-    try:
-        yield stats
-    finally:
-        _speculation = prev
+class Speculation:
+    """Speculative refills, for a CUDA graph of a walk step
+    (shaders/engine.py), which may not read the device.  Inside `with
+    spec:` every refill runs one loop of each size of SPECULATIVE_BATCHES,
+    whatever its count, and adds to `spec.values`, on the device, whether
+    it left a ray unresolved, the loops that gathered a ray, their rays
+    and the lanes launched.  `settle(read)` takes those values read on the
+    host: it says whether a ray was left unresolved (the step must then
+    run again without speculation) and, where none was, counts the loops
+    as the read-driven refill would."""
+
+    def __init__(self, device):
+        # int64 [unresolved, loops, rays, lanes]
+        self.values = torch.zeros(4, dtype=torch.int64, device=device)
+
+    def __enter__(self):
+        global _speculation
+        self.values.zero_()
+        _speculation = self
+        return self
+
+    def __exit__(self, *exc):
+        global _speculation
+        _speculation = None
+        return False
+
+    def refill(self, round_, t, sid, floor_r, bp):
+        """The fixed loops; a resolved ray 0 in the slots of a loop with
+        nothing to gather finds no block below its own t, so its results
+        stay as they are."""
+        for size in SPECULATIVE_BATCHES:
+            nr = min(size, _refill_batch(bp))
+            n = (floor_r < t).sum()
+            t, sid, floor_r = round_(t, sid, floor_r, nr)
+            self.values[1:] += torch.stack([(n > 0).long(),
+                                            torch.clamp(n, max=nr),
+                                            torch.full_like(n, nr * ST)])
+        self.values[0] |= (floor_r < t).any().long()
+        return t, sid
+
+    @staticmethod
+    def settle(read) -> bool:
+        """True where a ray was left unresolved; else counts the loops."""
+        unresolved, loops, rays, lanes = read
+        if unresolved:
+            return True
+        _count_refill(loops, rays, lanes)
+        return False
 
 
 @span("traversal._refill_exact")
@@ -436,8 +480,8 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
     them; rays left after 256 loops, or 4 loops in a row that resolve
     none, go through the dense naive scan.  One device read a query and
     one a loop: a loop's count after it is the next loop's count before.
-    Under `speculative`, the fixed loops of SPECULATIVE_BATCHES and no
-    read.  Returns (t, sid)."""
+    Inside a `Speculation`, its fixed loops and no read.  Returns (t,
+    sid)."""
     m = min(grid.top_m, min(grid.top_s, grid.num_supers) * grid.bps)
     dev = rays.device
     rrange = torch.arange(bp, dtype=torch.int64, device=dev)
@@ -471,19 +515,8 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
                                     torch.maximum(floor_r[ridx], cut2))
         return t, sid, floor_r
 
-    stats = _speculation
-    if stats is not None:
-        # A resolved ray 0 in the slots of a loop with nothing to gather
-        # finds no block below its own t, so its results stay as they are.
-        for size in SPECULATIVE_BATCHES:
-            nr = min(size, _refill_batch(bp))
-            n = (floor_r < t).sum()
-            t, sid, floor_r = round_(t, sid, floor_r, nr)
-            stats[1:] += torch.stack([(n > 0).long(),
-                                      torch.clamp(n, max=nr),
-                                      torch.full_like(n, nr * ST)])
-        stats[0] |= (floor_r < t).any().long()
-        return t, sid
+    if _speculation is not None:
+        return _speculation.refill(round_, t, sid, floor_r, bp)
 
     n = host_value((floor_r < t).sum(), "traversal")
     it = 0
@@ -494,10 +527,7 @@ def _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp):
         n_after = host_value((floor_r < t).sum(), "traversal")
         stall = 0 if n_after < n else stall + 1
         it += 1
-        LOOPS["refill"] += 1
-        REFILL["loops"] += 1
-        REFILL["rays"] += min(n, nr)
-        REFILL["lanes"] += nr * ST
+        _count_refill(1, min(n, nr), nr * ST)
         n = n_after
 
     # Dense backstop: the naive oracle over the whole triangle table, nd
@@ -572,6 +602,42 @@ def _subtile_windows(grid, rays, unit, sel_st, top_s, top_m):
     return cand_gid.contiguous(), cand_entry.contiguous(), cut
 
 
+def _tile_windows(grid, rays, top_s=None, top_m=None):
+    """The window of every TILE-ray tile, TILE_TOP_S/TILE_TOP_M deep unless
+    `top_s`/`top_m` say otherwise, capped at the tile's worst t_init.
+    Returns (cand_gid, cand_entry, cut), one row per tile."""
+    cap0 = rays[:, 6].reshape(rays.shape[0] // TILE, TILE).amax(1)
+    cg, _, ce, cut = _candidates(grid, rays[:, 0:3], rays[:, 3:6], cap=cap0,
+                                 st=TILE, top_s=top_s or TILE_TOP_S,
+                                 top_m=top_m or TILE_TOP_M)
+    return cg, ce, cut
+
+
+def _window_floor(cut, unit, t, rays, b, any_hit):
+    """Each lane's floor after a first pass over windows of `unit` lanes:
+    a ray whose best t is within its window's cutoff is resolved, and so
+    is every padding lane and, for any-hit, every ray with a blocker (any
+    blocker settles an occlusion query)."""
+    lane = torch.arange(rays.shape[0], device=rays.device)
+    floor_r = torch.where(lane >= b, _BIG, cut.repeat_interleave(unit))
+    if any_hit:
+        floor_r = torch.where(t < rays[:, 6], _BIG, floor_r)
+    return floor_r
+
+
+def _exact(grid, tris, rays, t, sid, floor_r, any_hit, t0):
+    """The tail every traversal shares: the first pass's (t, sid) made
+    exact by `_refill_exact` from its floor, cut to the b = len(t0) rays
+    of the query, misses as (RAY_LENGTH_MAX, -1)."""
+    b = t0.shape[0]
+    t, sid = _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit,
+                           rays.shape[0])
+    t, sid = t[:b], sid[:b]
+    hit = t < t0
+    return (torch.where(hit, t, _BIG),
+            torch.where(hit, sid.to(torch.int32), -1).to(torch.int32))
+
+
 def traverse(grid: BlockGrid, tris: Triangles, o, d, t_init, prev_kind,
              prev_id, any_hit: bool = False, with_steps: bool = False,
              sel_st: int = None, top_s: int = None, top_m: int = None):
@@ -586,25 +652,14 @@ def traverse(grid: BlockGrid, tris: Triangles, o, d, t_init, prev_kind,
     windows, so any setting returns the same exact hits."""
     b = o.shape[0]
     t0 = _t_init(t_init, o)
-    rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, GROUP * ST)
+    rays, _ = _pack_rays(o, d, t0, prev_kind, prev_id, GROUP * ST)
     cand_gid, cand_entry, cut = _subtile_windows(grid, rays, GROUP * ST,
                                                  sel_st, top_s, top_m)
     m = cand_gid.shape[1]
     t, sid, steps = _banded_balanced(grid, cand_gid, cand_entry, rays, m,
                                      any_hit)
-
-    # A ray whose best t is within its window's cutoff is resolved.
-    lane = torch.arange(bp, device=o.device)
-    floor_r = torch.where(lane >= b, _BIG, cut.repeat_interleave(ST))
-    if any_hit:
-        # Any blocker settles an occlusion query.
-        floor_r = torch.where(t < rays[:, 6], _BIG, floor_r)
-    t, sid = _refill_exact(grid, tris, rays, t, sid, floor_r, any_hit, bp)
-
-    t, sid = t[:b], sid[:b]
-    hit = t < t0
-    out = (torch.where(hit, t, _BIG),
-           torch.where(hit, sid.to(torch.int32), -1).to(torch.int32))
+    floor_r = _window_floor(cut, ST, t, rays, b, any_hit)
+    out = _exact(grid, tris, rays, t, sid, floor_r, any_hit, t0)
     if with_steps:
         return out + (steps[:b],)
     return out
@@ -617,29 +672,14 @@ def traverse_tilemt(grid: BlockGrid, tris: Triangles, o, d, t_init,
     window per 128-ray tile, TILE_TOP_S/TILE_TOP_M deep unless `top_s`/
     `top_m` say otherwise) plus the exact banded refill.  Same contract
     as `traverse`."""
-    b = o.shape[0]
     t0 = _t_init(t_init, o)
-    rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, TILE)
-    op, dp = rays[:, 0:3], rays[:, 3:6]
-    ntile = bp // TILE
-    cap0 = rays[:, 6].reshape(ntile, TILE).amax(1)
-    cg, _, ce, cut = _candidates(grid, op, dp, cap=cap0, st=TILE,
-                                 top_s=top_s or TILE_TOP_S,
-                                 top_m=top_m or TILE_TOP_M)
-    m = cg.shape[1]
-    out = kernels.traverse_tilemt(grid.tb, cg, ce, rays, m, any_hit)
-    t_cur, sid = out[:, 0], out[:, 1]
-
-    lane = torch.arange(bp, device=o.device)
-    floor_r = torch.where(lane >= b, _BIG, cut.repeat_interleave(TILE))
-    if any_hit:
-        floor_r = torch.where(t_cur < rays[:, 6], _BIG, floor_r)
-    t_fin, sid_fin = _refill_exact(grid, tris, rays, t_cur, sid, floor_r,
-                                   any_hit, bp)
-    t_fin, sid_fin = t_fin[:b], sid_fin[:b]
-    hit = t_fin < t0
-    return (torch.where(hit, t_fin, _BIG),
-            torch.where(hit, sid_fin.to(torch.int32), -1).to(torch.int32))
+    rays, _ = _pack_rays(o, d, t0, prev_kind, prev_id, TILE)
+    cg, ce, cut = _tile_windows(grid, rays, top_s, top_m)
+    out = kernels.traverse_tilemt(grid.tb, cg, ce, rays, cg.shape[1],
+                                  any_hit)
+    t, sid = out[:, 0], out[:, 1]
+    floor_r = _window_floor(cut, TILE, t, rays, o.shape[0], any_hit)
+    return _exact(grid, tris, rays, t, sid, floor_r, any_hit, t0)
 
 
 def _exact_mt_pair(tri_attr, o, d, slot_f, prev_f):
@@ -669,10 +709,7 @@ def traverse_tile(grid: BlockGrid, tris: Triangles, o, d, t_init,
     t0 = _t_init(t_init, o)
     rays, bp = _pack_rays(o, d, t0, prev_kind, prev_id, TILE)
     op, dp = rays[:, 0:3], rays[:, 3:6]
-    ntile = bp // TILE
-    cap0 = rays[:, 6].reshape(ntile, TILE).amax(1)
-    cg, _, ce, cut = _candidates(grid, op, dp, cap=cap0, st=TILE,
-                                 top_s=TILE_TOP_S, top_m=TILE_TOP_M)
+    cg, ce, cut = _tile_windows(grid, rays)
     tmg = grid.t_margin
     out = kernels.traverse_tile(grid.tw, cg, ce, rays, cg.shape[1], any_hit,
                                 tmg)
@@ -709,12 +746,7 @@ def traverse_tile(grid: BlockGrid, tris: Triangles, o, d, t_init,
     floor_r = torch.where(flag, -_BIG, floor_r)
     floor_r = torch.where(lanes_pad, _BIG, floor_r)
     t_cur = torch.where(lanes_pad, 0.0, t_cur)
-    t_fin, sid_fin = _refill_exact(grid, tris, rays, t_cur, sid, floor_r,
-                                   any_hit, bp)
-    t_fin, sid_fin = t_fin[:b], sid_fin[:b]
-    hit = t_fin < t0
-    return (torch.where(hit, t_fin, _BIG),
-            torch.where(hit, sid_fin.to(torch.int32), -1).to(torch.int32))
+    return _exact(grid, tris, rays, t_cur, sid, floor_r, any_hit, t0)
 
 
 def _resident_lists(grid: BlockGrid, cand_gid, cand_entry):
@@ -777,15 +809,8 @@ def traverse_resident(grid: BlockGrid, tris: Triangles, o, d, t_init,
     t = tp.amin(0)
     sid = torch.where(tp <= t[None, :], sp, _BIG).amin(0)
     sid = torch.where(t < _BIG * 0.5, sid, -1.0)
-
-    lane = torch.arange(bp, device=o.device)
-    floor_r = torch.where(lane >= b, _BIG, cut.repeat_interleave(ST))
-    floor_r = torch.where(t < rays[:, 6], _BIG, floor_r)
-    t, sid = _refill_exact(grid, tris, rays, t, sid, floor_r, True, bp)
-    t, sid = t[:b], sid[:b]
-    hit = t < t0
-    return (torch.where(hit, t, _BIG),
-            torch.where(hit, sid.to(torch.int32), -1).to(torch.int32))
+    floor_r = _window_floor(cut, ST, t, rays, b, True)
+    return _exact(grid, tris, rays, t, sid, floor_r, True, t0)
 
 
 _TRAVERSALS = {"banded": traverse, "tilemt": traverse_tilemt,

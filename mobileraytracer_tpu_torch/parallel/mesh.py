@@ -178,8 +178,7 @@ def _tensors(obj):
     if isinstance(obj, torch.Tensor):
         yield obj
     elif isinstance(obj, TensorData):
-        for f in obj.__dataclass_fields__:
-            yield from _tensors(getattr(obj, f))
+        yield from obj.tensors()
     elif isinstance(obj, dict):
         for k in sorted(obj):
             yield from _tensors(obj[k])

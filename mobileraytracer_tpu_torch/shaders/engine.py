@@ -40,9 +40,9 @@ import torch
 
 from .. import constants as C
 from .. import sampling
-from ..ops import block_bvh, block_traversal, bvh, grid, intersect, kernels
-from ..types import RenderConfig, Scene
-from ..utils.metrics import counters, host_value, span
+from ..ops import block_bvh, block_traversal, bvh, grid, intersect
+from ..types import RenderConfig, Scene, TensorData
+from ..utils.metrics import counted_apart, counters, host_value, span
 from . import common
 
 # Walk iterations (chunk steps, or full-batch steps) since the last reset.
@@ -135,7 +135,7 @@ def make_tracer(config: RenderConfig, differentiable: bool = False) -> Tracer:
 
 
 @dataclasses.dataclass
-class WalkState:
+class WalkState(TensorData):
     """Per-lane stacks of pending nodes, shape (B, S, ...), and the
     PathTracer's guard buckets, shape (B, K, ...) with K = depth_max for
     the PathTracer and 1 for the other shaders."""
@@ -277,11 +277,12 @@ def _scatter_back(state: WalkState, sub: WalkState, lanes, keep) -> None:
 # The chunk steps of a compacted walk on a CUDA device replay one CUDA
 # graph of the step, so the host launches a step as one graph rather than
 # its thousands of operations one by one.  It is captured on first use,
-# per scene (its tensors' addresses and shapes), configuration and chunk
-# size, with the traversals' refills speculative
-# (block_traversal.speculative); a step that leaves a ray unresolved there
-# runs again, op by op, from the graph's inputs.  Only steps over the
-# block traversal (ACC_BVH on a block_traversal.BlockGrid) are captured:
+# per scene (`TensorData.identity`: its tensors' addresses and shapes and
+# its other fields), configuration and chunk size, with the traversals'
+# refills speculative (block_traversal.Speculation); a step that leaves a
+# ray unresolved there runs again, op by op, from the graph's inputs.
+# Only steps over the block traversal (ACC_BVH on a
+# block_traversal.BlockGrid) are captured:
 # the other queries are not made for it (the grid's DDA and the
 # escape-index walk read the device, the naive scan copies its t_max from
 # the host).  False: every step op by op.
@@ -298,15 +299,6 @@ def clear_graphs() -> None:
     _graphs.clear()
 
 
-def _tensors(obj):
-    """Every tensor under a TensorData tree, in field order."""
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            yield from _tensors(getattr(obj, f.name))
-
-
 class _StepGraph:
     """One chunk step, `step(sub_state, sub_keys)`, as a CUDA graph over
     static input tensors."""
@@ -316,24 +308,20 @@ class _StepGraph:
         self.step = step
         self.inp = state.map(lambda a: a[idx])
         self.keys = keys[idx]
-        self.stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        self.spec = block_traversal.Speculation(dev)
 
         def run():
-            self.stats.zero_()
-            with block_traversal.speculative(self.stats):
+            with self.spec:
                 return step(self.inp, self.keys)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             run()       # lazy initialisation stays out of the capture
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = dict(kernels.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # The counts a replay makes; the capture itself launched nothing.
+        with counted_apart() as self.counts, torch.cuda.graph(self.graph):
             self.out = run()
-        # Launches a replay makes; the capture launched nothing.
-        self.launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
-        kernels.LAUNCHES.update(before)
 
     def load(self, state: WalkState, keys, idx) -> None:
         """Gathers the chunk's lanes into the graph's inputs."""
@@ -345,17 +333,11 @@ class _StepGraph:
     def run(self) -> WalkState:
         """The loaded chunk's step."""
         self.graph.replay()
-        unresolved, loops, rays, lanes = host_value(self.stats, "walker")
         GRAPH["replays"] += 1
-        if unresolved:
+        if self.spec.settle(host_value(self.spec.values, "walker")):
             GRAPH["reruns"] += 1
             return self.step(self.inp, self.keys)
-        for k, v in self.launches.items():
-            kernels.LAUNCHES[k] += v
-        block_traversal.LOOPS["refill"] += loops
-        block_traversal.REFILL["loops"] += loops
-        block_traversal.REFILL["rays"] += rays
-        block_traversal.REFILL["lanes"] += lanes
+        self.counts.replay()
         return self.out
 
 
@@ -366,12 +348,10 @@ def _step_graph(step, scene, config, state, keys, idx):
             or config.accelerator != C.ACC_BVH \
             or not isinstance(scene.bvh, block_traversal.BlockGrid):
         return None
-    tensors = list(_tensors(scene))
-    if any(t.requires_grad for t in tensors):
+    if any(t.requires_grad for t in scene.tensors()):
         return None
-    key = (tuple((t.data_ptr(), t.shape, t.dtype) for t in tensors), config,
-           idx.shape[0], tuple((t.shape, t.dtype) for t in _tensors(state)),
-           keys.dtype)
+    key = (scene.identity(), config, idx.shape[0],
+           tuple((t.shape, t.dtype) for t in state.tensors()), keys.dtype)
     g = _graphs.get(key)
     if g is None:
         g = _graphs[key] = _StepGraph(step, state, keys, idx)

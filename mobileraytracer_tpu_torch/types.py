@@ -54,7 +54,35 @@ def device_const(value, dtype, device) -> torch.Tensor:
 class TensorData:
     """Mixin for dataclasses of tensors (and nested such dataclasses):
     `.to(device)` moves every tensor field, `.replace(**kw)` copies,
-    `.detach()` takes every tensor off the autograd tape."""
+    `.detach()` takes every tensor off the autograd tape, `.tensors()`
+    yields every tensor and `.identity()` tells two trees apart."""
+
+    def tensors(self):
+        """Every tensor of the tree, nested ones included, in field
+        order."""
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                yield v
+            elif isinstance(v, TensorData):
+                yield from v.tensors()
+
+    def identity(self) -> tuple:
+        """A hashable key of every field: each tensor by (data_ptr, shape,
+        dtype), each nested tree by its identity, any other field by its
+        value.  Equal on two trees that share their tensors and every
+        other field, so a cache of work captured on the tensors' addresses
+        (a CUDA graph) can key on it."""
+        key = [type(self)]
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                key.append((v.data_ptr(), v.shape, v.dtype))
+            elif isinstance(v, TensorData):
+                key.append(v.identity())
+            else:
+                key.append(v)
+        return tuple(key)
 
     def to(self, device):
         kw = {}

@@ -25,7 +25,8 @@ Host syncs: `host_value(x, layer)` reads a device scalar and counts the
 read in `SYNCS[layer]`, always; with the tracer on it also times the wait
 as the span `<layer>.sync`.  The counters of the other modules (LOOPS,
 LAUNCHES, WALK) are registered here by `counters`, so `summary()` and
-`export()` list every counter in one place.
+`export()` list every counter in one place, and `counted_apart()` can
+set a block's counts aside and replay them later.
 """
 from __future__ import annotations
 
@@ -69,6 +70,41 @@ def counters(name: str, values: dict) -> dict:
     the owner keeps updating it) and returns it."""
     _counters[name] = values
     return values
+
+
+class CountChange:
+    """The change a block made to the registered counters (`counted_apart`);
+    `replay()` adds it to them again."""
+
+    def __init__(self):
+        self.change: Dict[str, dict] = {}
+
+    def replay(self) -> None:
+        for name, diff in self.change.items():
+            values = _counters[name]
+            for k, v in diff.items():
+                values[k] = values.get(k, 0) + v
+
+
+@contextmanager
+def counted_apart():
+    """Records the change the block makes to every registered counter into
+    the CountChange it yields, and restores the counters as they were
+    before the block.  Used around a CUDA graph's capture, whose launches
+    count only when the graph is replayed."""
+    before = {name: dict(v) for name, v in _counters.items()}
+    out = CountChange()
+    try:
+        yield out
+    finally:
+        for name, values in _counters.items():
+            old = before.get(name, {})
+            diff = {k: v - old.get(k, 0) for k, v in values.items()
+                    if v != old.get(k, 0)}
+            if diff:
+                out.change[name] = diff
+            values.clear()
+            values.update(old)
 
 
 # Explicit host reads of device values since the process started, by the

@@ -495,6 +495,64 @@ def test_pathtracer_step_graphs_equal_op_by_op_steps(secondary):
 
 
 @pytest.mark.cuda
+def test_step_graphs_key_on_every_field_of_the_scene():
+    """Two scenes on the same tensors whose block grids differ only in
+    `top_m` get a step graph each: with both scenes' graphs cached, each
+    scene's PathTracer sample equals its op-by-op sample in image, rays
+    and the refill's loops and rays, and equals in REFILL, LAUNCHES and
+    GRAPH the sample replayed from graphs captured for that scene alone.
+    (The speculative refill's fixed loops launch other lanes and kernels
+    than the op-by-op loops, so those two are held to the graphs alone.)
+    """
+    import dataclasses
+    from mobileraytracer_tpu_torch.shaders import engine
+    dev = _need_cuda()
+    scene, cam, _ = bench_scenes.conference_proxy(target_prims=20000)
+    scene = bt.build(scene, device=dev)
+    other = scene.replace(bvh=dataclasses.replace(scene.bvh, top_m=24))
+    assert other.bvh.top_m != scene.bvh.top_m
+    cam = cam.to(dev)
+    cfg = RenderConfig(width=64, height=64, spp=1,
+                       shader=C.SHADER_PATHTRACER, accelerator=C.ACC_BVH,
+                       nee_share=128, nee_reverse=True)
+    key = sampling.prng_key(11, dev)
+
+    def sample(sc, graphs):
+        before = (dict(bt.REFILL), dict(K.LAUNCHES), dict(engine.GRAPH))
+        engine.GRAPH_STEPS = graphs
+        try:
+            out = renderer.render_frame(sc, cam, cfg, key)
+        finally:
+            engine.GRAPH_STEPS = True
+        counts = [{k: v - b[k] for k, v in now.items()} for now, b in zip(
+            (bt.REFILL, K.LAUNCHES, engine.GRAPH), before)]
+        return out["image"].cpu().numpy(), int(out["rays"]), counts
+
+    scenes_ = (scene, other)
+    op = [sample(sc, False) for sc in scenes_]
+    alone = []
+    for sc in scenes_:
+        engine.clear_graphs()
+        sample(sc, True)
+        alone.append(sample(sc, True))
+    engine.clear_graphs()
+    for sc in scenes_:
+        sample(sc, True)
+    try:
+        for sc, o, a in zip(scenes_, op, alone):
+            img, rays, counts = sample(sc, True)
+            assert counts[2]["replays"] > 0
+            np.testing.assert_array_equal(img, o[0])
+            assert rays == o[1]
+            assert {k: counts[0][k] for k in ("loops", "rays")} == \
+                {k: o[2][0][k] for k in ("loops", "rays")}
+            assert counts == a[2]
+            np.testing.assert_array_equal(img, a[0])
+    finally:
+        engine.clear_graphs()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shader", [C.SHADER_WHITTED, C.SHADER_PATHTRACER,
                                     C.SHADER_DEPTHMAP])
 def test_grid_and_escape_bvh_frames_on_the_card(shader):

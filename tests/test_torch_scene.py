@@ -80,6 +80,23 @@ def test_convert_roundtrip():
     assert_same(jc, convert.camera_from_arrays(arrays(jc)), "camera")
 
 
+def test_tensor_data_identity_covers_every_field():
+    """A scene whose block grid differs only in `top_m` shares every
+    tensor, in the same order, but has another identity; a copy of the
+    scene on the same tensors has the same one."""
+    from mobileraytracer_tpu_torch.ops import block_traversal as tbt
+    ts, _ = tscenes.load_builtin(0, 1.0)
+    scene = tbt.build(ts, device="cpu")
+    other = scene.replace(bvh=dataclasses.replace(scene.bvh, top_m=24))
+    assert other.bvh.top_m != scene.bvh.top_m
+    mine, theirs = list(scene.tensors()), list(other.tensors())
+    assert len(mine) == len(theirs) > 0
+    assert all(a is b for a, b in zip(mine, theirs))
+    assert other.identity() != scene.identity()
+    assert scene.replace().identity() == scene.identity()
+    hash(scene.identity())
+
+
 @pytest.mark.parametrize("scene_id", [0, 1])   # perspective, orthographic
 def test_generate_rays_match(scene_id):
     _, jc = jscenes.load_builtin(scene_id, 1.0)

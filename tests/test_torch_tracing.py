@@ -3,7 +3,8 @@ nothing and reads no clock, and frames and gradients come out bitwise
 the same with it on; on, the spans nest as the layers do (frame, walker,
 traversal drivers, kernels), carry their unit's id, and their self times
 add up to the unit's duration; the traversal's host reads follow the
-refill's loop count; the Renderer's worker thread keeps its own stack;
+refill's loop count; a block's counts set apart replay as if it ran
+again; the Renderer's worker thread keeps its own stack;
 `cli --spans` writes the spans.  Imports neither jax nor the JAX package,
 so the `cuda` test runs on a machine with PyTorch for CUDA alone:
 
@@ -187,6 +188,34 @@ def test_traversal_syncs_follow_the_refill_loops(conference, tracer):
                              "block_traversal.REFILL", "kernels.LAUNCHES",
                              "engine.WALK", "engine.CHUNKS", "engine.GRAPH",
                              "metrics.SYNCS"}
+
+
+def _counts():
+    return {k: dict(v) for k, v in metrics.summary()["counters"].items()}
+
+
+def test_counted_apart_block_replays_as_if_it_ran_again(conference, tracer):
+    """`counted_apart` restores every registered counter after its block
+    and records the block's change: two replays of it leave the counters
+    as if the block had run twice more, the same dicts updated."""
+    s0 = _counts()
+    _frame(conference)
+    s1 = _counts()
+    change = {name: {k: v - s0[name][k] for k, v in c.items()
+                     if v != s0[name][k]} for name, c in s1.items()}
+    change = {name: c for name, c in change.items() if c}
+    assert change["block_traversal.LOOPS"]["refill"] > 0
+    assert change["metrics.SYNCS"]["traversal"] > 0
+    loops = bt.LOOPS
+    with metrics.counted_apart() as counted:
+        _frame(conference)
+    assert _counts() == s1 and bt.LOOPS is loops
+    assert counted.change == change
+    counted.replay()
+    counted.replay()
+    assert _counts() == {name: {k: v + 2 * change.get(name, {}).get(k, 0)
+                                for k, v in c.items()}
+                         for name, c in s1.items()}
 
 
 def test_renderer_worker_thread_keeps_its_own_stack(conference, tracer):

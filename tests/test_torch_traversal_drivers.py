@@ -293,36 +293,47 @@ def test_refill_batches_keep_every_hit(kind, any_hit, monkeypatch):
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("kind", ["primary", "bounce", "soup"])
 def test_speculative_refill_matches_or_flags(kind, any_hit):
-    """Under `speculative` (a walk step's CUDA graph) the refill reads
+    """Inside a `Speculation` (a walk step's CUDA graph) the refill reads
     nothing and runs the loops of SPECULATIVE_BATCHES: where it reports
     every ray resolved, each ray's t and id are the read-driven refill's
-    bit for bit, with its loop and ray counts; the soup's closest hits,
-    which need the dense backstop, are reported unresolved."""
+    bit for bit, and settling it adds exactly the read-driven refill's
+    LOOPS and REFILL counts, but for the lanes, which are its fixed
+    loops'; the soup's closest hits, which need the dense backstop, are
+    reported unresolved, and settling them counts nothing."""
     from mobileraytracer_tpu_torch.utils import metrics
     tris, grid, o, d, tmax, pk, pi = _refill_rays(kind)
     if any_hit:
         tmax = torch.full((o.shape[0],), 1.0 if kind == "soup" else 300.0)
-    before = dict(tbt.LOOPS), dict(tbt.REFILL)
+    counts = lambda: (dict(tbt.LOOPS), dict(tbt.REFILL))
+    before = counts()
     t_ref, id_ref = tbt.traverse(grid, tris, o, d, tmax, pk, pi,
                                  any_hit=any_hit)
-    loops = tbt.LOOPS["refill"] - before[0]["refill"]
-    dense = tbt.LOOPS["dense"] - before[0]["dense"]
-    rays = tbt.REFILL["rays"] - before[1]["rays"]
-    stats = torch.zeros(4, dtype=torch.int64)
+    after = counts()
+    change = [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
+    dense = change[0]["dense"]
+    spec = tbt.Speculation(o.device)
     syncs = metrics.SYNCS["traversal"]
-    with tbt.speculative(stats):
+    with spec:
         t, ids = tbt.traverse(grid, tris, o, d, tmax, pk, pi,
                               any_hit=any_hit)
     assert metrics.SYNCS["traversal"] == syncs
-    assert tbt.LOOPS == before[0] | {"refill": before[0]["refill"] + loops,
-                                     "dense": before[0]["dense"] + dense}
-    unresolved, spec_loops, spec_rays, lanes = stats.tolist()
-    assert lanes > 0
+    assert counts() == after
+    read = spec.values.tolist()
+    assert read[3] > 0
+    unresolved = spec.settle(read)
     if kind == "soup" and not any_hit:
         assert dense > 0 and unresolved
-    if not unresolved:
-        assert dense == 0 and loops <= len(tbt.SPECULATIVE_BATCHES)
-        assert (spec_loops, spec_rays) == (loops, rays)
+    if unresolved:
+        assert counts() == after
+    else:
+        assert dense == 0
+        assert change[0]["refill"] <= len(tbt.SPECULATIVE_BATCHES)
+        settled = counts()
+        added = [{k: a[k] - b[k] for k in a} for a, b in zip(settled, after)]
+        # The speculative loops launch their fixed lanes whatever they
+        # gather; every other count is the read-driven refill's.
+        assert added[0] == change[0]
+        assert added[1] == change[1] | {"lanes": read[3]}
         np.testing.assert_array_equal(t.numpy(), t_ref.numpy())
         np.testing.assert_array_equal(ids.numpy(), id_ref.numpy())
 
@@ -331,7 +342,11 @@ def test_speculative_refill_flags_rays_it_leaves(monkeypatch):
     """Loops too small for the unresolved rays leave some: reported."""
     tris, grid, o, d, tmax, pk, pi = _refill_rays("bounce")
     monkeypatch.setattr(tbt, "SPECULATIVE_BATCHES", (tbt.GROUP,))
-    stats = torch.zeros(4, dtype=torch.int64)
-    with tbt.speculative(stats):
+    spec = tbt.Speculation(o.device)
+    with spec:
         tbt.traverse(grid, tris, o, d, tmax, pk, pi)
-    assert stats[0] == 1 and stats[2] == tbt.GROUP
+    read = spec.values.tolist()
+    assert read[0] == 1 and read[2] == tbt.GROUP
+    loops = dict(tbt.LOOPS), dict(tbt.REFILL)
+    assert spec.settle(read)
+    assert (dict(tbt.LOOPS), dict(tbt.REFILL)) == loops
