@@ -10,6 +10,7 @@ resumes its state as a checkpoint.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -25,7 +26,7 @@ from .ops import block_traversal, grid
 from .shaders.engine import trace_image_sample
 from .types import (Camera, RenderConfig, Scene, entry_device,
                     scene_num_primitives)
-from .utils.metrics import host_value, span
+from .utils.metrics import counters, host_value, span
 
 # Render lifecycle states (reference JNI_layer.hpp:12-14).
 STATE_IDLE = "IDLE"
@@ -34,12 +35,25 @@ STATE_FINISHED = "FINISHED"
 STATE_STOPPED = "STOPPED"
 
 
-@span("frame._pixel_order")
-def _pixel_order(config: RenderConfig, device=None):
-    """Lane order: 4x4 image patches, patch-major, so consecutive lanes
-    form coherent ray tiles.  Returns (u, v, pixel_ids, inverse
-    permutation) with u = x / width, v = y / height."""
-    w, h = config.width, config.height
+# The lane tables of the last ORDERS_KEPT (width, height, C.SUBTILE,
+# device) keys, least recently used first: 16 bytes a pixel on the device
+# (4 MB at 512², 59 MB at 1920²), and sweep.py walks many sizes.
+ORDERS_KEPT = 4
+_orders: "collections.OrderedDict" = collections.OrderedDict()
+_orders_lock = threading.Lock()
+# Lane tables built (a numpy sort and four copies) and handed out again.
+ORDER = counters("renderer.ORDER", {"built": 0, "reused": 0})
+
+
+def _order_device(device) -> torch.device:
+    """The device of a cache key: None is the CPU, "cuda" its index."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _build_order(w: int, h: int, device: torch.device):
     ph, pw = max(C.SUBTILE // 4, 1), 4
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     order = np.lexsort((xs.ravel() % pw, ys.ravel() % ph,
@@ -49,8 +63,40 @@ def _pixel_order(config: RenderConfig, device=None):
     inv[pids] = np.arange(w * h, dtype=np.int32)
     u = (pids % w).astype(np.float32) / w
     v = (pids // w).astype(np.float32) / h
-    t = lambda a: torch.from_numpy(a).to(device)
-    return t(u), t(v), t(pids), t(inv)
+    out = tuple(torch.from_numpy(a).to(device) for a in (u, v, pids, inv))
+    if device.type == "cuda":
+        # A caller on another stream may read the shared tables: they
+        # land before any caller gets them.
+        torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+@span("frame._pixel_order")
+def _pixel_order(config: RenderConfig, device=None):
+    """Lane order: 4x4 image patches, patch-major, so consecutive lanes
+    form coherent ray tiles.  Returns (u, v, pixel_ids, inverse
+    permutation) with u = x / width, v = y / height (float32, float32,
+    int32, int32).
+
+    The tables depend only on (width, height, C.SUBTILE, device) and are
+    built once per key: every call with the key returns the same tensor
+    objects, so they are shared and read-only.  No caller writes into
+    them: they slice them, index with them and compute new tensors from
+    them (`pids.long()`, `u - 0.5`)."""
+    w, h = config.width, config.height
+    dev = _order_device(device)
+    key = (w, h, C.SUBTILE, dev)
+    with _orders_lock:
+        out = _orders.get(key)
+        if out is None:
+            out = _orders[key] = _build_order(w, h, dev)
+            ORDER["built"] += 1
+            while len(_orders) > ORDERS_KEPT:
+                _orders.popitem(last=False)
+        else:
+            _orders.move_to_end(key)
+            ORDER["reused"] += 1
+    return out
 
 
 def sample_pixels(scene: Scene, camera: Camera, config: RenderConfig,

@@ -575,6 +575,39 @@ def test_grid_and_escape_bvh_frames_on_the_card(shader):
         _pt_match(frames[acc][0], ref)
 
 
+@pytest.mark.cuda
+def test_lane_tables_cached_on_the_card():
+    """The 512² lane tables on the card equal a fresh CPU build bitwise; a
+    cache hit ("cuda" and cuda:<index> are one key) hands out the same
+    tensors without a sync, and a warm frame builds no table."""
+    dev = _need_cuda()
+    cfg = RenderConfig(width=512, height=512)
+    card = renderer._pixel_order(cfg, dev)
+    fresh = renderer._build_order(512, 512, torch.device("cpu"))
+    for a, b in zip(card, fresh):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+    reused = renderer.ORDER["reused"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hit = renderer._pixel_order(
+            cfg, torch.device("cuda", torch.cuda.current_device()))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(a is b for a, b in zip(hit, card))
+    assert renderer.ORDER["reused"] == reused + 1
+
+    ts, tc = scenes.load_builtin(C.SCENE_CORNELL, 1.0)
+    fcfg = RenderConfig(width=32, height=32, shader=C.SHADER_WHITTED,
+                        accelerator=C.ACC_NAIVE)
+    key = sampling.prng_key(0, dev)
+    first = renderer.render_frame(ts.to(dev), tc.to(dev), fcfg, key)
+    built = renderer.ORDER["built"]
+    warm = renderer.render_frame(ts.to(dev), tc.to(dev), fcfg, key)
+    assert renderer.ORDER["built"] == built
+    assert torch.equal(first["image"], warm["image"])
+
+
 def _gumbel_plain(key, logits, k, table):
     return threefry.categorical(key, logits, k, table=table)
 

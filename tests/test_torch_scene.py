@@ -1,5 +1,6 @@
 """Scene data, cameras, lane order and film of the PyTorch port, held
 against the JAX package on the same inputs."""
+import collections
 import dataclasses
 
 import jax
@@ -15,11 +16,14 @@ from mobileraytracer_tpu import renderer as jrend
 from mobileraytracer_tpu import scenes as jscenes
 from mobileraytracer_tpu.types import RenderConfig as JConfig
 from mobileraytracer_tpu_torch import bench_scenes as tbs
+from mobileraytracer_tpu_torch import constants as TC
 from mobileraytracer_tpu_torch import cameras as tcam
 from mobileraytracer_tpu_torch import convert
 from mobileraytracer_tpu_torch import film as tfilm
+from mobileraytracer_tpu_torch import sampling as tsampling
 from mobileraytracer_tpu_torch import renderer as trend
 from mobileraytracer_tpu_torch import scenes as tscenes
+from mobileraytracer_tpu_torch.parallel import mesh as tmesh
 from mobileraytracer_tpu_torch.types import RenderConfig as TConfig
 
 torch.set_num_threads(2)
@@ -114,13 +118,115 @@ def test_generate_rays_match(scene_id):
                                atol=1e-6)
 
 
+@pytest.fixture
+def cold_orders(monkeypatch):
+    """An empty lane-table cache for the test; the process's is put back."""
+    monkeypatch.setattr(trend, "_orders", collections.OrderedDict())
+    return trend._orders
+
+
+def _assert_tables(tout, jout):
+    for j, t in zip(jout, tout):
+        assert t.dtype == (torch.float32 if j.dtype == jnp.float32
+                           else torch.int32)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
 @pytest.mark.parametrize("wh", [(64, 64), (48, 32)])
-def test_pixel_order_equal(wh):
+def test_pixel_order_equal(wh, cold_orders):
+    """The tables built on a cold cache and handed out again both equal
+    the JAX package's."""
     w, h = wh
     jout = jrend._pixel_order(JConfig(width=w, height=h))
-    tout = trend._pixel_order(TConfig(width=w, height=h))
-    for j, t in zip(jout, tout):
-        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    for _ in range(2):
+        _assert_tables(trend._pixel_order(TConfig(width=w, height=h)), jout)
+
+
+@pytest.mark.parametrize("w,h,subtile", [(16, 16, 16), (37, 23, 16),
+                                         (48, 32, 16), (512, 512, 16),
+                                         (48, 32, 32)])
+def test_pixel_order_cache_equals_fresh_build(w, h, subtile, cold_orders,
+                                              monkeypatch):
+    """The first call builds the key's tables, the second hands out the
+    same tensor objects; both equal a fresh build (the JAX package's) at
+    the subtile in force."""
+    monkeypatch.setattr(TC, "SUBTILE", subtile)
+    monkeypatch.setattr(jrend.C, "SUBTILE", subtile)
+    jout = jrend._pixel_order(JConfig(width=w, height=h))
+    before = dict(trend.ORDER)
+    first = trend._pixel_order(TConfig(width=w, height=h))
+    assert trend.ORDER == {"built": before["built"] + 1,
+                           "reused": before["reused"]}
+    again = trend._pixel_order(TConfig(width=w, height=h))
+    assert trend.ORDER == {"built": before["built"] + 1,
+                           "reused": before["reused"] + 1}
+    assert all(a is b for a, b in zip(first, again))
+    _assert_tables(again, jout)
+
+
+def test_pixel_order_subtile_is_part_of_the_key(cold_orders, monkeypatch):
+    cfg = TConfig(width=48, height=32)
+    at16 = trend._pixel_order(cfg)
+    monkeypatch.setattr(TC, "SUBTILE", 32)
+    at32 = trend._pixel_order(cfg)
+    assert len(cold_orders) == 2
+    assert not torch.equal(at16[2], at32[2])
+
+
+def test_pixel_order_cpu_devices_share_one_entry(cold_orders):
+    cfg = TConfig(width=16, height=8)
+    before = dict(trend.ORDER)
+    outs = [trend._pixel_order(cfg, d)
+            for d in (None, "cpu", torch.device("cpu"))]
+    assert len(cold_orders) == 1
+    assert trend.ORDER == {"built": before["built"] + 1,
+                           "reused": before["reused"] + 2}
+    for out in outs[1:]:
+        assert all(a is b for a, b in zip(outs[0], out))
+
+
+def test_pixel_order_cache_evicts_least_recently_used(cold_orders):
+    cfgs = [TConfig(width=8 * (i + 1), height=8)
+            for i in range(trend.ORDERS_KEPT + 1)]
+    first = trend._pixel_order(cfgs[0])
+    for cfg in cfgs[1:-1]:
+        trend._pixel_order(cfg)
+    assert trend._pixel_order(cfgs[0])[0] is first[0]   # most recent now
+    trend._pixel_order(cfgs[-1])                         # evicts cfgs[1]
+    assert len(cold_orders) == trend.ORDERS_KEPT
+    assert [k[0] for k in cold_orders] == \
+        [c.width for c in cfgs[2:-1]] + [8, cfgs[-1].width]
+    built = trend.ORDER["built"]
+    assert trend._pixel_order(cfgs[0])[0] is first[0]
+    assert trend.ORDER["built"] == built
+    trend._pixel_order(cfgs[1])
+    assert trend.ORDER["built"] == built + 1
+
+
+def test_no_path_writes_into_the_shared_lane_tables(cold_orders):
+    """A Whitted frame, two progressive samples and the training step's
+    lane set-up read the cached tables and leave them as built; a frame
+    rendered on a cold cache equals the one rendered on the warm cache."""
+    ts, tc = tscenes.load_builtin(0, 1.0)
+    cfg = TConfig(width=16, height=16, spp=1, shader=TC.SHADER_WHITTED,
+                  accelerator=TC.ACC_NAIVE)
+    key = tsampling.prng_key(0, "cpu")
+    cold = trend.render_frame(ts, tc, cfg, key)
+    tables = trend._pixel_order(cfg)
+    snapshot = [t.clone() for t in tables]
+    warm = trend.render_frame(ts, tc, cfg, key)
+    r = trend.Renderer(ts, tc, dataclasses.replace(cfg, spp=2),
+                       device="cpu")
+    r.render()
+    assert r.sample == 2
+    tmesh.prepared(ts, tc, cfg, key, np.zeros((16, 16, 3), np.float32))
+    assert len(cold_orders) == 1
+    assert all(a is b for a, b in zip(trend._pixel_order(cfg), tables))
+    for t, s in zip(tables, snapshot):
+        assert torch.equal(t, s)
+    _assert_tables(tables, jrend._pixel_order(JConfig(width=16, height=16)))
+    for k in ("image", "bitmap", "rays"):
+        assert torch.equal(cold[k], warm[k])
 
 
 def test_film_equal():

@@ -187,7 +187,7 @@ def test_traversal_syncs_follow_the_refill_loops(conference, tracer):
     assert set(counters) == {"block_traversal.LOOPS",
                              "block_traversal.REFILL", "kernels.LAUNCHES",
                              "engine.WALK", "engine.CHUNKS", "engine.GRAPH",
-                             "metrics.SYNCS"}
+                             "metrics.SYNCS", "renderer.ORDER"}
 
 
 def _counts():
