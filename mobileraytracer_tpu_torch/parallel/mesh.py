@@ -29,7 +29,9 @@ import torch.distributed as dist
 from .. import film
 from ..renderer import (_pixel_order, accumulate_samples, finish_frame,
                         sample_pixels)
-from ..types import Camera, Materials, RenderConfig, Scene, TensorData
+from ..types import (Camera, Lights, Materials, RenderConfig, Scene,
+                     TensorData)
+from ..utils.metrics import span
 
 RAY_AXIS = "rays"
 HOST_AXIS = "hosts"
@@ -242,21 +244,33 @@ def render_frame_sharded(scene: Scene, camera: Camera, config: RenderConfig,
 # Differentiable rendering and the gradient all-reduce: the training step.
 # ---------------------------------------------------------------------------
 
-def material_params(mat: Materials) -> dict:
-    """The differentiable (float) part of the material table."""
-    return {"le": mat.le, "kd": mat.kd, "ks": mat.ks, "kt": mat.kt,
-            "ior": mat.ior}
+def material_params(mat: Materials, lights: Optional[Lights] = None) -> dict:
+    """The differentiable (float) part of the material table; with
+    `lights`, also their radiance (L, 3) under "radiance", which NEE and
+    light hits read (the JAX package recovers the material fields
+    alone)."""
+    out = {"le": mat.le, "kd": mat.kd, "ks": mat.ks, "kt": mat.kt,
+           "ior": mat.ior}
+    if lights is not None:
+        out["radiance"] = lights.radiance
+    return out
 
 
 def _scene_with_params(scene: Scene, params: dict) -> Scene:
-    return scene.replace(materials=scene.materials.replace(**params))
+    mats = dict(params)
+    radiance = mats.pop("radiance", None)
+    scene = scene.replace(materials=scene.materials.replace(**mats))
+    if radiance is not None:
+        scene = scene.replace(lights=scene.lights.replace(radiance=radiance))
+    return scene
 
 
 def render_loss_fn(params: dict, scene: Scene, camera: Camera,
                    config: RenderConfig, key, target, u, v, pids, max_point):
     """Sum of squared errors between the sample mean of `config.spp`
     differentiable samples and `target` (lanes in the order of `pids`);
-    on autograd's tape of `params`, the material fields it replaces."""
+    on autograd's tape of `params`, the material fields (and the lights'
+    "radiance") it replaces."""
     scene = _scene_with_params(scene, params)
     accum = torch.zeros((u.shape[0], 3), dtype=torch.float32,
                         device=u.device)
@@ -300,18 +314,23 @@ def reduce_sums(sums: dict, mesh) -> dict:
 
 
 def loss_and_grads(params: dict, scene: Scene, config: RenderConfig,
-                   prep: dict, wrt, mesh=None):
+                   prep: dict, wrt, mesh=None, events: Optional[dict] = None):
     """(loss / denom, {name: d(loss / denom) / d params[name]} for the names
     in `wrt`), the loss detached.  With `mesh`, `prep` holds this shard's
     lanes and the shards' sums are all-reduced before the division, as
-    JAX's psum is."""
+    JAX's psum is.  The forward render and autograd's backward run in the
+    spans `recover.forward` and `recover.backward`, which on a CUDA device
+    also record CUDA events into `events` (a dict) where one is given."""
     leaves = {k: params[k].detach().requires_grad_(True) for k in wrt}
     merged = dict(params, **leaves)
-    loss = render_loss_fn(merged, scene, prep["camera"], config, prep["key"],
-                          prep["target"], prep["u"], prep["v"], prep["pids"],
-                          prep["max_point"])
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
+    dev = prep["u"].device
+    with span("recover.forward", events=events, device=dev):
+        loss = render_loss_fn(merged, scene, prep["camera"], config,
+                              prep["key"], prep["target"], prep["u"],
+                              prep["v"], prep["pids"], prep["max_point"])
+    with span("recover.backward", events=events, device=dev):
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
     sums = {k: torch.zeros_like(leaves[k]) if g is None else g
             for k, g in zip(leaves, grads)}
     loss = loss.detach()

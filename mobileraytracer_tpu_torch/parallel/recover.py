@@ -7,7 +7,11 @@ gradient of the loss of parallel/mesh.py (all-reduced over the mesh) and
 applies `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)` (optax's
 `adam` up to rounding: PyTorch takes the bias corrections in float64),
 then clamps the parameters to their physical range: kd, ks, kt and ior to
-[0, 1], le to >= 0.  Over a mesh every rank keeps its own Adam, fed the
+[0, 1], le to >= 0.  Besides the material fields, "radiance", the lights'
+radiance (scene.lights.radiance, (L, 3)), is recoverable, clamped to
+>= 0 as le is: the emission of a scene whose emitters are area lights
+(the JAX package recovers the material fields alone).  Over a mesh every
+rank keeps its own Adam, fed the
 same all-reduced gradient, and after each step the ranks compare a digest
 of their parameters; where the backend's sum was not bitwise the same on
 every rank, the mesh's first rank's state is broadcast.  Step s draws with
@@ -15,20 +19,31 @@ every rank, the mesh's first rank's state is broadcast.  Step s draws with
 the JAX package's layout; over a mesh the first rank writes it and every
 rank reads it) equals an uninterrupted one.  A state is (params,
 optimizer).
+
+Tracing (utils/metrics.py): a step is the unit span `recover.step`; in it
+`recover.forward` (the loss's render), `recover.backward` (autograd) and
+`recover.update` (Adam and the clamp).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import sampling
-from ..types import Camera, RenderConfig, Scene
+from ..types import Camera, Materials, RenderConfig, Scene
+from ..utils.metrics import span
 from . import mesh as pmesh
 
 BETAS = (0.9, 0.999)
 EPS = 1e-8
+
+# When a dict, the `recover.forward` and `recover.backward` spans of a step
+# on a CUDA device also record CUDA events into it, {"forward": [(start,
+# end), ...], "backward": [...]}, for a caller to read after a sync.
+EVENTS = None
 
 
 def make_state(params: dict, learning_rate: float):
@@ -63,25 +78,34 @@ def make_recovery_step(scene: Scene, camera: Camera, config: RenderConfig,
                        learning_rate: float = 0.05, max_point=None):
     """Returns (step_fn, init_state): `step_fn(state, key, target) ->
     (state, loss)` with state = (params, optimizer).  Only the fields in
-    `params_subset` are optimized; the rest of the material table stays
-    at the scene's values.  With `mesh`, each rank traces its shard and
-    every rank returns the same state and loss."""
-    full = pmesh.material_params(scene.materials)
+    `params_subset` (material fields, and "radiance", the lights') are
+    optimized; the rest stay at the scene's values.  After a step each
+    parameter's `.grad` holds the gradient it took.  With `mesh`, each
+    rank traces its shard and every rank returns the same state and
+    loss."""
+    full = pmesh.material_params(scene.materials, scene.lights)
     subset = tuple(params_subset)
+    # The clamp's upper bound: 1 for the material fields but le; none for
+    # le and for what is not a material field (the lights' radiance).
+    bounded = {f.name for f in dataclasses.fields(Materials)} - {"le"}
+    upper = {k: 1.0 if k in bounded else None for k in subset}
 
+    @span("recover.step")
     def step_fn(state, key, target):
         params, opt = state
         prep = pmesh.prepared(scene, camera, config, key, target, max_point,
                               mesh)
         loss, grads = pmesh.loss_and_grads(dict(full, **params), scene,
-                                           config, prep, subset, mesh)
-        opt.zero_grad(set_to_none=True)
-        for k in subset:
-            params[k].grad = grads[k]
-        opt.step()
-        with torch.no_grad():
+                                           config, prep, subset, mesh,
+                                           events=EVENTS)
+        with span("recover.update"):
+            opt.zero_grad(set_to_none=True)
             for k in subset:
-                params[k].clamp_(0.0, None if k == "le" else 1.0)
+                params[k].grad = grads[k]
+            opt.step()
+            with torch.no_grad():
+                for k in subset:
+                    params[k].clamp_(0.0, upper[k])
         if mesh is not None:
             agree((params, opt), mesh)
         return (params, opt), loss

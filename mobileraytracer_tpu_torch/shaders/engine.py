@@ -50,6 +50,9 @@ WALK = counters("engine.WALK", {"steps": 0})
 # The compacted walk's chunks: how many ran, their slots and how many of
 # those held a live lane.
 CHUNKS = counters("engine.CHUNKS", {"chunks": 0, "slots": 0, "live": 0})
+# The full-batch steps (the differentiable walk, small batches, NoShadows):
+# how many ran, the lanes they traced and how many of those were live.
+FULL = counters("engine.FULL", {"steps": 0, "lanes": 0, "live": 0})
 
 
 class Tracer(NamedTuple):
@@ -523,13 +526,18 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
     unit = C.SUBTILE * max(1, 128 // C.SUBTILE)   # traversal padding unit
     if differentiable or b < 8 * unit or shader == C.SHADER_NOSHADOWS:
         # Small batches and the differentiable walk: full-batch steps
-        # until drained.
+        # until drained.  The step's one host read is its live-lane count.
         it = 0
-        while it < max_iters and host_value(lane_live(state).any(),
-                                            "walker"):
+        while it < max_iters:
+            n_live = host_value(lane_live(state).sum(), "walker")
+            if not n_live:
+                break
             state = step(state, keys)
             it += 1
             WALK["steps"] += 1
+            FULL["steps"] += 1
+            FULL["lanes"] += b
+            FULL["live"] += n_live
     else:
         state = step(state, keys, primary=True)
         WALK["steps"] += 1

@@ -13,18 +13,18 @@ decorator).  It is off until `enable()`; off, a span is a shared null
 context that reads no clock.  On, each span records its name, start, end
 (`time.perf_counter_ns`), parent and unit, and adds to its name's count,
 total and self time (the duration less what its child spans cover).  A
-unit is one frame, sample or gradient call: it opens at the outermost of
-the ROOTS spans, and every span beneath carries its id.  The last
-UNITS_KEPT units' spans stay in memory for `export`; the per-name sums
-cover every span since `reset()`.  Each thread has its own stack of open
-spans.  While a torch.profiler session runs, each span also opens a
-`record_function` range of its name, so the spans sit on the profiler's
-timeline beside the device's kernels.
+unit is one frame, sample, gradient call or recovery step: it opens at
+the outermost of the ROOTS spans, and every span beneath carries its id.
+The last UNITS_KEPT units' spans stay in memory for `export`; the
+per-name sums cover every span since `reset()`.  Each thread has its own
+stack of open spans.  While a torch.profiler session runs, each span also
+opens a `record_function` range of its name, so the spans sit on the
+profiler's timeline beside the device's kernels.
 
 Host syncs: `host_value(x, layer)` reads a device scalar and counts the
 read in `SYNCS[layer]`, always; with the tracer on it also times the wait
 as the span `<layer>.sync`.  The counters of the other modules (LOOPS,
-LAUNCHES, WALK) are registered here by `counters`, so `summary()` and
+LAUNCHES, WALK, FULL) are registered here by `counters`, so `summary()` and
 `export()` list every counter in one place, and `counted_apart()` can
 set a block's counts aside and replay them later.
 """
@@ -46,9 +46,9 @@ from torch.autograd import _profiler_enabled
 logger = logging.getLogger("mobileraytracer_tpu_torch")
 
 # Spans that open a unit when no unit is open: a frame, one sample of the
-# progressive Renderer, one vertex-gradient call.
+# progressive Renderer, one vertex-gradient call, one recovery step.
 ROOTS = frozenset({"frame.render_frame", "frame.render_sample",
-                   "gradients.vertex_grad"})
+                   "gradients.vertex_grad", "recover.step"})
 UNITS_KEPT = 16          # units whose spans stay in memory for export
 LOOSE_KEPT = 4096        # spans outside any unit that stay in memory
 

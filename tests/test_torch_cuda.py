@@ -768,6 +768,55 @@ def test_train_step_on_the_card_equals_plain_versions(cuda_scene):
 
 
 @pytest.mark.cuda
+def test_pathtracer_recovery_step_on_the_card_equals_plain_versions(
+        cuda_scene):
+    """One PathTracer recovery step of kD and the lights' radiance at 64x64
+    (the differentiable walk, its backward, Adam and the clamp): under
+    deterministic algorithms the loss, both gradients and the parameters
+    after it equal the same step's with the plain versions in the kernels'
+    place, bit for bit; only banded launches."""
+    from mobileraytracer_tpu_torch.parallel import recover
+    scene = cuda_scene[0]
+    _, cam, _ = bench_scenes.conference_proxy(target_prims=20000)
+    cfg = RenderConfig(width=64, height=64, spp=2,
+                       shader=C.SHADER_PATHTRACER, accelerator=C.ACC_BVH,
+                       nee_share=128, nee_reverse=True,
+                       nee_share_secondary=True)
+    target = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (64, 64, 3)).astype(np.float32))
+    key = sampling.prng_key(2, "cuda")
+    start = {"kd": torch.full_like(scene.materials.kd, 0.5),
+             "radiance": scene.lights.radiance * 0.5}
+
+    def step():
+        step_fn, _ = recover.make_recovery_step(
+            scene, cam, cfg, params_subset=("kd", "radiance"))
+        state, loss = step_fn(recover.make_state(start, 0.05), key, target)
+        return loss, {k: (p.grad, p.detach()) for k, p in state[0].items()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        K.reset_launches()
+        loss, got = step()
+        launches = dict(K.LAUNCHES)
+        restore = _plain_kernels()
+        try:
+            loss_p, got_p = step()
+        finally:
+            restore()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert launches["banded"] > 0 and launches["tilemt"] == 0, launches
+    assert launches["window"] == launches["banded"], launches
+    assert torch.equal(loss, loss_p)
+    for k in got:
+        for a, b in zip(got[k], got_p[k]):
+            assert torch.isfinite(a).all()
+            assert torch.equal(a, b), k
+    assert float(got["radiance"][0].abs().max()) > 0
+    assert float(got["radiance"][1].min()) >= 0.0
+
+
+@pytest.mark.cuda
 def test_two_rank_gloo_frame_on_the_card(tmp_path):
     """The cornell2 32x32 block-BVH frame of tests/torch_mesh_worker.py
     sharded over 2 gloo ranks that share the card: both ranks launch the

@@ -5,7 +5,10 @@ traversal drivers, kernels), carry their unit's id, and their self times
 add up to the unit's duration; the traversal's host reads follow the
 refill's loop count; a block's counts set apart replay as if it ran
 again; the Renderer's worker thread keeps its own stack;
-`cli --spans` writes the spans.  Imports neither jax nor the JAX package,
+`cli --spans` writes the spans; a recovery step is a unit with its
+forward, backward and update spans, the full-batch walk counts its
+steps, lanes and live lanes with one host read a step, and the lights'
+radiance survives a checkpoint.  Imports neither jax nor the JAX package,
 so the `cuda` test runs on a machine with PyTorch for CUDA alone:
 
     python -m pytest --noconftest tests/test_torch_tracing.py -q -m cuda
@@ -15,15 +18,19 @@ import json
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
-from mobileraytracer_tpu_torch import bench_scenes, cli, renderer, sampling
+from mobileraytracer_tpu_torch import bench_scenes, cli, convert, renderer
 from mobileraytracer_tpu_torch import constants as C
+from mobileraytracer_tpu_torch import sampling
 from mobileraytracer_tpu_torch.diff import geom
 from mobileraytracer_tpu_torch.ops import block_traversal as bt
+from mobileraytracer_tpu_torch.parallel import recover
+from mobileraytracer_tpu_torch.shaders import engine
 from mobileraytracer_tpu_torch.types import RenderConfig
-from mobileraytracer_tpu_torch.utils import metrics
+from mobileraytracer_tpu_torch.utils import checkpoint, metrics
 
 torch.set_num_threads(2)
 
@@ -187,7 +194,7 @@ def test_traversal_syncs_follow_the_refill_loops(conference, tracer):
     assert set(counters) == {"block_traversal.LOOPS",
                              "block_traversal.REFILL", "kernels.LAUNCHES",
                              "engine.WALK", "engine.CHUNKS", "engine.GRAPH",
-                             "metrics.SYNCS", "renderer.ORDER"}
+                             "engine.FULL", "metrics.SYNCS", "renderer.ORDER"}
 
 
 def _counts():
@@ -297,6 +304,103 @@ def test_cli_spans_writes_the_trace(tmp_path, tracer):
     assert row["trace"] == trace["otherData"]
     assert row["trace"]["spans"]["frame.render_sample"]["count"] == 1
     assert "metrics.SYNCS" in row["trace"]["counters"]
+
+
+RECOVER = RenderConfig(width=16, height=16, spp=2,
+                       shader=C.SHADER_PATHTRACER, accelerator=C.ACC_BVH,
+                       nee_share=128, nee_reverse=True,
+                       nee_share_secondary=True)
+
+
+def _recovery(conference, steps=1, **kw):
+    """recover_materials of kD and the lights' radiance on the PathTracer
+    at 16x16 from half the scene's values."""
+    scene, cam = conference
+    init = {"kd": scene.materials.kd * 0.5,
+            "radiance": scene.lights.radiance * 0.5}
+    target = torch.full((16, 16, 3), 0.25)
+    return recover.recover_materials(
+        scene, cam, RECOVER, target, steps=steps,
+        params_subset=("kd", "radiance"), learning_rate=0.05,
+        base_key=sampling.prng_key(4), init_params=init, **kw)
+
+
+def test_recovery_spans_and_full_counter_advance(conference, tracer):
+    """A recovery step is one unit, `recover.step`, holding its forward,
+    backward and update spans; the full-batch walk's counter `engine.FULL`
+    is registered and counts its steps, the lanes they traced (every lane
+    at every step) and the live ones among them."""
+    before = dict(engine.FULL)
+    metrics.enable()
+    _recovery(conference)
+    metrics.disable()
+    spans = metrics.summary()["spans"]
+    for name in ("recover.step", "recover.forward", "recover.backward",
+                 "recover.update"):
+        assert spans[name]["count"] == 1, name
+    assert spans["walker.trace_image_sample"]["count"] == RECOVER.spp
+    unit, recs = metrics.units()[-1]
+    names = {r[1] for r in recs}
+    assert {"recover.step", "recover.forward", "recover.backward",
+            "recover.update", "walker.step"} <= names
+    assert all(r[5] == unit for r in recs)
+    full = {k: engine.FULL[k] - before[k] for k in engine.FULL}
+    assert full["steps"] >= RECOVER.spp
+    assert full["lanes"] == full["steps"] * 16 * 16
+    assert 0 < full["live"] < full["lanes"]
+    assert metrics.summary()["counters"]["engine.FULL"] == dict(engine.FULL)
+
+
+def test_full_batch_walk_reads_the_host_once_a_step(conference, tracer):
+    """The differentiable walk reads its live-lane count once before each
+    step and once more to find it drained (a chain of depth_max + 1 nodes
+    drains within the pops budget): SYNCS["walker"] is the full-batch
+    steps plus the walks, as it was while the read was `.any()`."""
+    before = (metrics.SYNCS["walker"], engine.FULL["steps"])
+    metrics.enable()
+    _recovery(conference)
+    metrics.disable()
+    walks = metrics.summary()["spans"]["walker.trace_image_sample"]["count"]
+    steps = engine.FULL["steps"] - before[1]
+    assert metrics.SYNCS["walker"] - before[0] == steps + walks
+
+
+def test_radiance_checkpoint_round_trip_and_resume_bitwise(conference,
+                                                           tmp_path):
+    """The lights' radiance and its Adam moments go under their own names
+    beside JAX's leaves of kD; load_opt_state gives back the saved state
+    exactly, and a run resumed from its step-2 file equals the
+    uninterrupted run bit for bit."""
+    path = tmp_path / "rec.npz"
+    params, losses = _recovery(conference, steps=3,
+                               checkpoint_path=str(path), checkpoint_every=2)
+    with np.load(path) as f:
+        assert sorted(f.files) == sorted(
+            ["leaf_0", "leaf_1", "leaf_2", "leaf_3", "radiance",
+             "radiance_mu", "radiance_nu", "opt_step", "losses"])
+        assert int(f["leaf_1"]) == int(f["opt_step"]) == 2
+        saved = {k: f[k] for k in f.files}
+    scene = conference[0]
+    template = recover.make_state({"kd": scene.materials.kd,
+                                   "radiance": scene.lights.radiance}, 0.05)
+    (got, opt), step, _ = checkpoint.load_opt_state(str(path), template)
+    assert step == 2
+    assert np.array_equal(got["kd"].detach().numpy(), saved["leaf_0"])
+    assert np.array_equal(got["radiance"].detach().numpy(),
+                          saved["radiance"])
+    count, mu, nu = convert.adam_to_optax(opt, got)
+    assert int(count) == 2
+    assert np.array_equal(mu["radiance"], saved["radiance_mu"])
+    assert np.array_equal(nu["radiance"], saved["radiance_nu"])
+    assert np.array_equal(mu["kd"], saved["leaf_2"])
+    resumed, losses_r = _recovery(conference, steps=3,
+                                  checkpoint_path=str(path),
+                                  checkpoint_every=2, resume=True)
+    for k in params:
+        assert torch.equal(params[k], resumed[k]), k
+    assert np.array_equal(losses, losses_r)
+    assert float((params["radiance"] - scene.lights.radiance * 0.5)
+                 .abs().max()) > 0.01
 
 
 @pytest.mark.cuda
